@@ -1,0 +1,1 @@
+"""Part of granne_tpu_torch; see the package docstring."""
