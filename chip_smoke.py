@@ -4,8 +4,8 @@ starts and is right on an NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-1. Builds every CUDA kernel of the main path from ``granne_tpu_torch/csrc``
-   (and the shared adjacency codec with g++).
+1. Builds every CUDA kernel of the main paths from ``granne_tpu_torch/csrc``
+   (and the shared adjacency codec with g++), all compilers started together.
 2. K1 (``gather_score_flat``) against its plain PyTorch version on the card
    at the serve shape n=200,000, M=20, d=100, B=1024, E in {1, 4}: ids
    exactly equal, dots within 1e-4 (both sum exact bf16 products in f32 and
@@ -18,6 +18,22 @@ starts and is right on an NVIDIA GPU.
    seed 42; 200,000 x 100 with 4,096 held-out queries), M=20, build ef=100.
    Recall@10 against exact f32 ground truth must reach 0.95 at some
    ef <= 120, and the search must have launched K1.
+4. K3/K4/K5 (``ivf_score_slots``, ``ivf_score_slots_grouped``,
+   ``ivf_score_topk``) against their plain versions on the card, with bf16,
+   f32 and int8 blocks, at the IVF path's shape (1,000 blocks of L=256,
+   d=100; 1,520 slots of 32 queries; k_out=10), with a short tail group
+   (S % 8 != 0), and with blocks over 227 KB (L=512, d=300): K3/K4 within
+   1e-4 on the cosine scale, K5 values within 1e-4 and ids equal except
+   at near-ties; exactly tied rows rank the lower column first.
+5. The IVF main path through the public API on the same data (bench.py's
+   IVF row): ``IvfIndex.build(n_clusters=666, kmeans_iters=10,
+   cluster_cap=256)`` in bf16 -> ``save`` -> ``load(device="cuda")`` ->
+   ``search_batch`` of all 4,096 queries at nprobe 4..64.  Recall@10 must
+   reach 0.95; at the first nprobe that does, the K3 and fused K5 routes
+   must agree with the K4 route (id overlap >= 0.999), each timed.  Then
+   bf16 brute force, and an int8 index from ``build_ivf_i8_chunked`` (four
+   50,000-row chunks) whose recall at nprobe 16 is at most 0.01 below the
+   int8 brute-force recall.  The path must have launched K3, K4 and K5.
 
 Any failed phase exits non-zero.  The last two lines of stdout are the
 kernel table and ``{"ok": true, "device": {...}}``.
@@ -30,6 +46,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -42,6 +59,21 @@ EFS = (32, 40, 60, 80, 120)
 TARGET_RECALL = 0.95
 K1_ATOL = 1e-4
 TIMED_LAUNCHES = 50
+
+# IVF: bench.py's IVF row (n_clusters = N // 300, 10 k-means iterations, L = 256)
+IVF_CLUSTERS, IVF_ITERS, IVF_CAP = N // 300, 10, 256
+NPROBES = (4, 8, 16, 32, 64)
+ROUTE_AGREEMENT = 0.999
+I8_CHUNK, I8_NPROBE, I8_SLACK = 50_000, 16, 0.01
+IVF_ATOL = 1e-4
+IVF_TIMED = 20
+# K3/K4/K5 shapes: (name, blocks, L, d, slots); cap 32 and k_out 10 throughout
+IVF_CASES = (
+    ("serve", 1000, 256, 100, 1520),  # the IVF path's shape: 1,000 blocks, nprobe 4 x 4,096 queries
+    ("tail", 1000, 256, 100, 1521),  # S % 8 != 0: a shorter last group
+    ("big-block", 6, 512, 300, 40),  # 307 KB (bf16) / 614 KB (f32) blocks
+)
+IVF_SLOT_CAP, IVF_GROUP = 32, 8
 
 
 def log(msg: str) -> None:
@@ -126,16 +158,127 @@ def bench_data():
     return vecs, queries
 
 
-def exact_topk(torch, elements, queries):
+def exact_topk(torch, vecs, queries):
     """Exact f32 top-K ids by cosine: a check, computed on the card."""
     from granne_tpu_torch.ops import distance
 
+    xn = distance.normalize(torch.as_tensor(vecs, device="cuda"))
     qn = distance.normalize(torch.as_tensor(queries, device="cuda"))
     out = []
     for lo in range(0, qn.shape[0], SERVE_B):
-        dots = qn[lo : lo + SERVE_B] @ elements.vectors.T
+        dots = qn[lo : lo + SERVE_B] @ xn.T
         out.append(dots.topk(K, dim=1).indices)
     return torch.cat(out).cpu().numpy()
+
+
+def recall_at_k(ids, gt) -> float:
+    return float(np.mean([len(set(a) & set(b)) / K for a, b in zip(ids, gt)]))
+
+
+def overlap(a, b) -> float:
+    return float(np.mean([len(set(x) & set(y)) / len(x) for x, y in zip(a, b)]))
+
+
+def check_result(torch, ids, dists, n, what):
+    """Shape, id range and finite distances of one search result; numpy ids."""
+    if not bool(torch.isfinite(dists[ids >= 0]).all()):
+        fail(f"non-finite distances in {what}")
+    ids = ids.cpu().numpy()
+    if ids.shape != (N_QUERIES, K) or ids.min() < -1 or ids.max() >= n:
+        fail(f"malformed search result in {what}: shape {ids.shape}")
+    return ids
+
+
+def ivf_case(torch, dtype, k, L, d, S, seed):
+    """Unit-norm blocks (int8: their codes and inverse norms), a padded
+    tail of -1 ids in every block, random slot keys, bf16 query groups."""
+    from granne_tpu_torch.ops import distance
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = distance.normalize(torch.randn((k, L, d), generator=gen, device=dev))
+    scales = torch.ones((k, L), dtype=torch.float32, device=dev)
+    if dtype == torch.int8:
+        blocks = distance.quantize_i8(rows)
+        scales = distance.inv_norms_i8(blocks)
+    else:
+        blocks = rows.to(dtype)
+    ids = torch.arange(k * L, dtype=torch.int32, device=dev).reshape(k, L)
+    ids[:, L - L // 5 :] = -1
+    keys = torch.randint(0, k, (S,), generator=gen, device=dev, dtype=torch.int32)
+    qg = distance.normalize(torch.randn((S, IVF_SLOT_CAP, d), generator=gen, device=dev)).to(torch.bfloat16)
+    return blocks, ids, scales, keys, qg
+
+
+def ivf_kernel_phase(torch):
+    """K3/K4/K5 vs their plain versions.  Returns {kernel: record}."""
+    from granne_tpu_torch.ops.kernels import ivf_score as KS
+
+    recs = {n: {"max_abs_err": 0.0} for n in ("ivf_score_slots", "ivf_score_slots_grouped", "ivf_score_topk")}
+    for seed, (name, k, L, d, S) in enumerate(IVF_CASES):
+        for dtype in (torch.bfloat16, torch.float32, torch.int8):
+            blocks, ids, scales, keys, qg = ivf_case(torch, dtype, k, L, d, S, seed)
+            ref = KS.ivf_score_slots_reference(blocks, keys, qg)
+            k3 = KS.ivf_score_slots(blocks, keys, qg)
+            k4 = KS.ivf_score_slots_grouped(blocks, keys, qg, group=IVF_GROUP)
+            v, i = KS.ivf_score_topk(blocks, ids, scales, keys, qg, k_out=K)
+            rv, ri = KS.ivf_score_topk_reference(blocks, ids, scales, keys, qg, k_out=K)
+            torch.cuda.synchronize()
+            what = f"{name} {str(dtype).replace('torch.', '')}"
+            row_scale = scales[keys.long()][:, None, :]  # int8 raw dots run to ~400: compare cosines
+            for kname, got in (("ivf_score_slots", k3), ("ivf_score_slots_grouped", k4)):
+                if not bool(torch.isfinite(got).all()):
+                    fail(f"{kname} gave non-finite scores ({what})")
+                err = float(((got - ref) * row_scale).abs().max())
+                if err > IVF_ATOL:
+                    fail(f"{kname} differs from the plain version by {err} > {IVF_ATOL} ({what})")
+                recs[kname]["max_abs_err"] = max(recs[kname]["max_abs_err"], err)
+            fin = torch.isfinite(rv)
+            if not torch.equal(torch.isfinite(v), fin) or not bool((i[~fin] == -1).all()):
+                fail(f"ivf_score_topk -inf/-1 padding differs from the plain version ({what})")
+            err = float((v[fin] - rv[fin]).abs().max())
+            gaps = (rv[..., 1:] - rv[..., :-1]).abs() <= IVF_ATOL
+            near = torch.zeros_like(fin)
+            near[..., 1:] |= gaps
+            near[..., :-1] |= gaps
+            if err > IVF_ATOL or not torch.equal(i[~near], ri[~near]):
+                fail(f"ivf_score_topk differs from the plain version ({what}): value err {err}")
+            recs["ivf_score_topk"]["max_abs_err"] = max(recs["ivf_score_topk"]["max_abs_err"], err)
+            times = {}
+            if name == "serve":
+                args = [(blocks, ids, scales, keys, qg)] * IVF_TIMED
+                pairs = {
+                    "ivf_score_slots": (lambda b, _i, _s, kk, q: KS.ivf_score_slots(b, kk, q),
+                                        lambda b, _i, _s, kk, q: KS.ivf_score_slots_reference(b, kk, q)),
+                    "ivf_score_slots_grouped": (
+                        lambda b, _i, _s, kk, q: KS.ivf_score_slots_grouped(b, kk, q, group=IVF_GROUP),
+                        lambda b, _i, _s, kk, q: KS.ivf_score_slots_reference(b, kk, q)),
+                    "ivf_score_topk": (lambda *a: KS.ivf_score_topk(*a, k_out=K),
+                                       lambda *a: KS.ivf_score_topk_reference(*a, k_out=K)),
+                }
+                for kname, (kernel, plain) in pairs.items():
+                    cuda_ms(kernel, args[:3], torch)
+                    cuda_ms(plain, args[:3], torch)
+                    # plain, kernel, kernel, plain: both sides see the same drift
+                    p1, k1, k2, p2 = (cuda_ms(f, args, torch) for f in (plain, kernel, kernel, plain))
+                    times[kname] = ((k1 + k2) / 2, (p1 + p2) / 2)
+                    if dtype == torch.bfloat16:  # the main path's block type
+                        recs[kname].update(ms=times[kname][0], plain_ms=times[kname][1])
+            log(f"K3/K4/K5 {what} S={S}: errs k3/k4/k5 = "
+                f"{[recs[n]['max_abs_err'] for n in recs]} times (kernel_ms, plain_ms) = {times}")
+            del blocks, ids, scales, keys, qg, ref, k3, k4, v, i, rv, ri
+    # exactly duplicated block rows tie in any summation order: the lower column first
+    blocks, ids, scales, keys, qg = ivf_case(torch, torch.bfloat16, 4, 64, 40, 6, 7)
+    blocks[2, 10] = blocks[2, 3]
+    blocks[2, 30] = blocks[2, 3]
+    keys[:] = 2
+    qg[:, 0] = blocks[2, 3]
+    _, i = KS.ivf_score_topk(blocks, ids, scales, keys, qg, k_out=5)
+    torch.cuda.synchronize()
+    if not torch.equal(i[:, 0, :3], ids[2, [3, 10, 30]].expand(6, 3)):
+        fail(f"ivf_score_topk broke an exact tie away from the lower column: {i[0, 0].tolist()}")
+    torch.cuda.empty_cache()
+    return recs
 
 
 def search_all(torch, index, queries, ef):
@@ -149,12 +292,19 @@ def search_all(torch, index, queries, ef):
     return ids, dists
 
 
-def main_path(torch, g):
+def reset_launch_counts():
+    from granne_tpu_torch.ops.kernels import ivf_score as KS
+    from granne_tpu_torch.ops.kernels.nbr_score import gather_score_flat
+
+    for fn in (gather_score_flat, KS.ivf_score_slots, KS.ivf_score_slots_grouped, KS.ivf_score_topk):
+        fn.launches = 0
+
+
+def main_path(torch, g, vecs, queries, gt):
     from granne_tpu_torch.index.granne import Granne
     from granne_tpu_torch.ops.kernels.nbr_score import gather_score_flat
 
-    vecs, queries = bench_data()
-    gather_score_flat.launches = 0  # count the main path's launches only
+    reset_launch_counts()  # count the main path's launches only
 
     builder = g.GranneBuilder(
         "angular", num_neighbors=M, max_search=BUILD_EF, wave_size=WAVE, expand=EXPAND,
@@ -187,18 +337,13 @@ def main_path(torch, g):
     log(f"save/load: index {os.path.getsize(ipath)} bytes (compressed), "
         f"elements {os.path.getsize(epath)} bytes; round trip equal")
 
-    gt = exact_topk(torch, loaded.elements, queries)
     serve = Granne(layers=loaded.layers, elements=loaded.elements.as_bf16()).with_neighbor_cache("flat")
     del built, builder
     chosen = None
     for ef in EFS:
         ids, dists = search_all(torch, serve, queries, ef)
-        if not bool(torch.isfinite(dists[ids >= 0]).all()):
-            fail(f"non-finite distances at ef={ef}")
-        ids = ids.cpu().numpy()
-        if ids.shape != (N_QUERIES, K) or ids.min() < -1 or ids.max() >= N:
-            fail(f"malformed search result at ef={ef}: shape {ids.shape}")
-        recall = float(np.mean([len(set(ids[i]) & set(gt[i])) / K for i in range(N_QUERIES)]))
+        ids = check_result(torch, ids, dists, N, f"the HNSW search at ef={ef}")
+        recall = recall_at_k(ids, gt)
         log(f"search ef={ef}: recall@{K}={recall}")
         if chosen is None and recall >= TARGET_RECALL:
             search_all(torch, serve, queries, ef)  # warm
@@ -216,6 +361,95 @@ def main_path(torch, g):
     return launches
 
 
+def timed_search(torch, fn):
+    """(result, QPS) of one warm repeat of ``fn()``, host clock around a
+    synchronize; the first call warms."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, N_QUERIES / (time.perf_counter() - t)
+
+
+def ivf_path(torch, g, vecs, queries, gt):
+    """The IVF and brute-force engines through the public API.  Returns the
+    K3/K4/K5 launch counts of this path."""
+    from granne_tpu_torch.index.ivf_big import build_ivf_i8_chunked
+    from granne_tpu_torch.ops import distance
+    from granne_tpu_torch.ops.kernels import ivf_score as KS
+
+    reset_launch_counts()  # count this path's launches only
+    t = time.perf_counter()
+    built = g.IvfIndex.build(vecs, n_clusters=IVF_CLUSTERS, kmeans_iters=IVF_ITERS, cluster_cap=IVF_CAP,
+                             device="cuda")
+    torch.cuda.synchronize()
+    log(f"ivf build: n={N} clusters={IVF_CLUSTERS} blocks={built.k} L={built.cluster_cap} "
+        f"seconds={time.perf_counter() - t}")
+    os.makedirs(os.path.join(REPO, "build", "chip_smoke"), exist_ok=True)
+    path = os.path.join(REPO, "build", "chip_smoke", "index.ivf")
+    built.save(path)
+    ivf = g.IvfIndex.load(path, device="cuda")
+    for name in ("centroids", "block_ids", "block_scales"):
+        if not torch.equal(getattr(ivf, name), getattr(built, name)):
+            fail(f"the loaded IVF index's {name} differ from the built ones")
+    if not torch.equal(ivf.blocks.view(torch.int16), built.blocks.view(torch.int16)) or ivf.n_total != N:
+        fail("the loaded IVF blocks differ from the built ones")
+    log(f"ivf save/load: {os.path.getsize(path)} bytes; round trip equal")
+    del built
+
+    chosen = None
+    for nprobe in NPROBES:
+        ids, dists = ivf.search_batch(queries, K, nprobe=nprobe)
+        ids = check_result(torch, ids, dists, N, f"the IVF search at nprobe={nprobe}")
+        recall = recall_at_k(ids, gt)
+        log(f"ivf bf16 nprobe={nprobe}: recall@{K}={recall}")
+        if chosen is None and recall >= TARGET_RECALL:
+            chosen = dict(nprobe=nprobe, recall=recall)
+            for route, kw in (("k4", {}), ("k3", {"slot_group": 1}), ("k5_fused", {"fused_topk": True})):
+                (r_ids, r_d), qps = timed_search(torch, lambda: ivf.search_batch(queries, K, nprobe=nprobe, **kw))
+                r_ids = check_result(torch, r_ids, r_d, N, f"the IVF {route} route")
+                agree = overlap(r_ids, ids)
+                log(f"ivf route {route}: nprobe={nprobe} qps={qps} recall@{K}={recall_at_k(r_ids, gt)} "
+                    f"overlap_with_k4={agree} (batch {N_QUERIES})")
+                if agree < ROUTE_AGREEMENT:
+                    fail(f"the IVF {route} route agrees {agree} < {ROUTE_AGREEMENT} with the K4 route")
+    if chosen is None:
+        fail(f"IVF recall@{K} stayed below {TARGET_RECALL} for every nprobe in {NPROBES}")
+    del ivf
+
+    brute = g.BruteForceIndex.build(vecs, device="cuda")
+    (b_ids, b_d), qps = timed_search(torch, lambda: brute.search_batch(queries, K))
+    log(f"brute bf16: recall@{K}={recall_at_k(check_result(torch, b_ids, b_d, N, 'brute bf16'), gt)} "
+        f"qps={qps} (batch {N_QUERIES})")
+    del brute
+
+    codes = distance.quantize_i8(distance.normalize(torch.as_tensor(vecs, device="cuda"))).cpu().numpy()
+    brute8 = g.BruteForceIndex.build(vecs, storage="int8", device="cuda")
+    (b_ids, b_d), qps = timed_search(torch, lambda: brute8.search_batch(queries, K))
+    r_b8 = recall_at_k(check_result(torch, b_ids, b_d, N, "brute int8"), gt)
+    log(f"brute int8: recall@{K}={r_b8} qps={qps} (batch {N_QUERIES})")
+    del brute8
+    t = time.perf_counter()
+    ivf8 = build_ivf_i8_chunked(codes, n_clusters=IVF_CLUSTERS, cluster_cap=IVF_CAP, kmeans_iters=IVF_ITERS,
+                                chunk=I8_CHUNK, device="cuda", log=log)
+    torch.cuda.synchronize()
+    log(f"ivf int8 build (chunked, {-(-N // I8_CHUNK)} chunks): blocks={ivf8.k} seconds={time.perf_counter() - t}")
+    for route, kw in (("k4", {}), ("k5_fused", {"fused_topk": True})):
+        (i_ids, i_d), qps = timed_search(torch, lambda: ivf8.search_batch(queries, K, nprobe=I8_NPROBE, **kw))
+        r_i8 = recall_at_k(check_result(torch, i_ids, i_d, N, f"the int8 IVF {route} route"), gt)
+        log(f"ivf int8 {route}: nprobe={I8_NPROBE} recall@{K}={r_i8} qps={qps} (int8 brute {r_b8})")
+        if r_i8 < r_b8 - I8_SLACK:
+            fail(f"int8 IVF recall {r_i8} is more than {I8_SLACK} below int8 brute force {r_b8}")
+
+    launches = {f.__name__: f.launches for f in (KS.ivf_score_slots, KS.ivf_score_slots_grouped, KS.ivf_score_topk)}
+    log(f"IVF kernel launches in the IVF path: {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"the IVF path never launched {name}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -229,7 +463,7 @@ def main() -> None:
         fail(f"granne_tpu_torch comes from {g.__file__}, not from this checkout")
     from granne_tpu_torch.native import get_lib as load_codec
     from granne_tpu_torch.ops import distance
-    from granne_tpu_torch.ops.kernels.nbr_score import load_kernel
+    from granne_tpu_torch.ops.kernels import ivf_score, nbr_score
 
     distance.full_f32()
     smi = subprocess.run(
@@ -238,17 +472,31 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
-    t = time.perf_counter()
-    load_kernel()
-    k1_build = time.perf_counter() - t
-    t = time.perf_counter()
-    load_codec()
-    log(f"build: nbr_score.cu (nvcc) {k1_build} s, codec.cpp (g++) {time.perf_counter() - t} s")
+    def timed_build(load):
+        t = time.perf_counter()
+        load()
+        return time.perf_counter() - t
+
+    builds = {"nbr_score.cu (nvcc)": nbr_score.load_kernel, "ivf_score.cu (nvcc)": ivf_score.load_kernel,
+              "codec.cpp (g++)": load_codec}
+    with ThreadPoolExecutor(len(builds)) as pool:  # every compiler at once
+        futures = {name: pool.submit(timed_build, load) for name, load in builds.items()}
+        log("build (in parallel): " + ", ".join(f"{name} {f.result()} s" for name, f in futures.items()))
+
+    def no_jax(after):
+        if "jax" in sys.modules or "granne_tpu" in sys.modules:
+            fail(f"the port pulled in jax or the JAX package ({after})")
 
     rec = k1_phase(torch)
-    launches = main_path(torch, g)
-    if "jax" in sys.modules or "granne_tpu" in sys.modules:
-        fail("the port pulled in jax or the JAX package")
+    no_jax("K1 phase")
+    ivf_recs = ivf_kernel_phase(torch)
+    no_jax("K3/K4/K5 phase")
+    vecs, queries = bench_data()
+    gt = exact_topk(torch, vecs, queries)
+    launches = main_path(torch, g, vecs, queries, gt)
+    no_jax("HNSW path")
+    ivf_launches = ivf_path(torch, g, vecs, queries, gt)
+    no_jax("IVF path")
 
     kernels = [{
         "name": "gather_score_flat",
@@ -260,6 +508,17 @@ def main() -> None:
         "ms": rec["ms"],
         "plain_ms": rec["plain_ms"],
     }]
+    for name, line in (("ivf_score_slots", 59), ("ivf_score_slots_grouped", 136), ("ivf_score_topk", 227)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "granne_tpu_torch/csrc/ivf_score.cu",
+            "replaces": f"granne_tpu/ops/pallas/ivf_score.py:{line}",
+            "launches": ivf_launches[name],
+            "max_abs_err": ivf_recs[name]["max_abs_err"],
+            "ms": ivf_recs[name]["ms"],
+            "plain_ms": ivf_recs[name]["plain_ms"],
+        })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

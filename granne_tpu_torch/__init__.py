@@ -2,7 +2,9 @@
 
 HNSW build (wave-parallel) and batched beam search over f32 cosine vectors,
 served from a bf16 copy through a flat neighbor cache scored by a
-hand-written CUDA kernel (``csrc/nbr_score.cu``).  The module layout
+hand-written CUDA kernel (``csrc/nbr_score.cu``); the IVF engine, whose
+slot scorers are hand-written CUDA kernels (``csrc/ivf_score.cu``), and the
+exact brute-force engine, with the same serving API.  The module layout
 mirrors ``granne_tpu``; the on-disk formats are the same files.  This
 package imports torch and numpy, never jax.
 """
@@ -12,12 +14,16 @@ from .elements.angular import AngularVectors
 from .index.builder import MAX_ELEMENTS, BuildConfig, build_layers
 from .index.granne import Granne
 from .index.graph import LayerStack
+from .index.ivf import IvfIndex
+from .models.brute import BruteForceIndex
 
 __all__ = [
     "AngularVectors",
+    "BruteForceIndex",
     "BuildConfig",
     "Granne",
     "GranneBuilder",
+    "IvfIndex",
     "LayerStack",
     "MAX_ELEMENTS",
     "build_layers",

@@ -2,17 +2,23 @@
 
 ``granne_tpu``'s ``LayerStack.as_numpy()`` and its ``AngularVectors.vectors``
 (as a numpy array) become the port's objects on ``device``; the tests use
-this to run the port on JAX-built graphs.  Files written by either package
-load in the other (``index.io``), so this is the in-memory path only.
+this to run the port on JAX-built graphs.  The IVF and brute-force engines'
+arrays come across the same way (bf16 as numpy's extension ``bfloat16``
+dtype or as raw uint16 bits).  Files written by either package load in the other
+(``index.io``, ``IvfIndex.save``/``load``), so this is the in-memory path
+only.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .elements.angular import AngularVectors
 from .index.granne import Granne
 from .index.graph import LayerStack
+from .index.ivf import IvfIndex
+from .models.brute import BruteForceIndex
 
 
 def layers_from_numpy(layer_arrays, device="cuda") -> LayerStack:
@@ -25,4 +31,33 @@ def granne_from_numpy(layer_arrays, vectors, device="cuda") -> Granne:
     return Granne(
         layers=layers_from_numpy(layer_arrays, device=device),
         elements=AngularVectors.from_normalized(np.asarray(vectors, np.float32), device=device),
+    )
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    """A numpy array (copied) as a tensor on ``device``; bf16 (the
+    extension ``bfloat16`` dtype or raw uint16 bits) becomes ``torch.bfloat16``."""
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
+        return torch.as_tensor(np.array(a).view(np.int16), device=device).view(torch.bfloat16)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def ivf_from_numpy(centroids, blocks, block_ids, block_scales, n_total, device="cuda") -> IvfIndex:
+    """A JAX ``IvfIndex``'s arrays (as numpy) -> the port's ``IvfIndex``."""
+    return IvfIndex(
+        centroids=_tensor(np.asarray(centroids, np.float32), device),
+        blocks=_tensor(blocks, device),
+        block_ids=_tensor(np.asarray(block_ids, np.int32), device),
+        block_scales=_tensor(np.asarray(block_scales, np.float32), device),
+        n_total=int(n_total),
+    )
+
+
+def brute_from_numpy(vectors, scale, n_total, device="cuda") -> BruteForceIndex:
+    """A JAX ``BruteForceIndex``'s arrays (as numpy) -> the port's."""
+    return BruteForceIndex(
+        vectors=_tensor(vectors, device),
+        scale=_tensor(np.asarray(scale, np.float32), device),
+        n_total=int(n_total),
     )

@@ -11,17 +11,10 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from ..ops import distance as D
 from .base import NeighborCacheScoring
-
-
-def _as_f32(raw, device) -> torch.Tensor:
-    if isinstance(raw, torch.Tensor):
-        return raw.to(device=device, dtype=torch.float32)
-    return torch.tensor(np.asarray(raw, dtype=np.float32), device=device)  # a copy
 
 
 @dataclass(frozen=True)
@@ -35,14 +28,14 @@ class AngularVectors(NeighborCacheScoring):
     @classmethod
     def from_raw(cls, raw, device="cuda") -> "AngularVectors":
         """Build from unnormalized f32 data [n, d]; normalizes each row."""
-        arr = _as_f32(raw, device)
+        arr = D.as_f32(raw, device)
         if arr.ndim != 2:
             raise ValueError(f"expected [n, d] array, got shape {tuple(arr.shape)}")
         return cls(vectors=D.normalize(arr))
 
     @classmethod
     def from_normalized(cls, vectors, device="cuda") -> "AngularVectors":
-        return cls(vectors=_as_f32(vectors, device))
+        return cls(vectors=D.as_f32(vectors, device))
 
     def as_bf16(self) -> "AngularVectors":
         """A bfloat16 serving copy (half the gathered bytes; dots still
@@ -68,7 +61,7 @@ class AngularVectors(NeighborCacheScoring):
 
     def prepare_queries(self, raw: torch.Tensor) -> torch.Tensor:
         # normalize in f32, then match the element dtype (bf16 serving copy)
-        return D.normalize(_as_f32(raw, self.device)).to(self.vectors.dtype)
+        return D.normalize(D.as_f32(raw, self.device)).to(self.vectors.dtype)
 
     def dist_ids_to_queries(self, ids: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
         return D.angular_dist_gathered(self.get(ids), queries)
@@ -96,7 +89,7 @@ class AngularVectors(NeighborCacheScoring):
 
     def extend(self, raw) -> "AngularVectors":
         """Functional append: a new container; this one is left as it is."""
-        new = D.normalize(_as_f32(raw, self.device)).to(self.vectors.dtype)
+        new = D.normalize(D.as_f32(raw, self.device)).to(self.vectors.dtype)
         return dataclasses.replace(self, vectors=torch.cat([self.vectors, new], dim=0))
 
     # -- convenience -------------------------------------------------------

@@ -1,0 +1,417 @@
+"""IVF (inverted-file) index (port of ``granne_tpu/index/ivf.py``).
+
+Elements are permuted cluster by cluster into a padded dense tensor
+[k, L, d] plus an id map [k, L] (-1 padding).  A search is:
+
+    1. score queries against the k centroids        (one f32 matrix product)
+    2. pick the top-``nprobe`` blocks per query      (stable sort: ties probe
+                                                      the lower block, as
+                                                      ``lax.top_k`` does)
+    3. group (query, block) pairs into slots and score every slot's block
+       against its query group                      (K4, or K3 with
+                                                      ``slot_group=1``, or
+                                                      K5 with ``fused_topk``)
+    4. merge the per-block candidates into each query's top-k
+
+A cluster larger than L spans several physical blocks, each with a copy of
+the cluster's centroid row, so the coarse probe reaches every sub-block of
+a near cluster and no element leaves its true cluster.  Exact within the
+probed blocks; recall is tuned by ``nprobe``.  Files are the JAX package's,
+byte for byte.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops import distance as D
+from ..ops import kmeans
+from ..ops.kernels import ivf_score
+from ..ops.segment import group_pairs
+from ..ops.topk import top_k
+from . import io as gio
+
+IVF_MAGIC = b"granne-tpu-ivf"
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
+_DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
+_FILE_DTYPES = {"bfloat16": np.dtype("<i2"), "float32": np.dtype("<f4"), "int8": np.dtype("i1")}
+
+
+def layout_blocks(x: np.ndarray, centroids: np.ndarray, assign: np.ndarray, k: int, L: int):
+    """Fixed-size physical sub-blocks (host numpy).
+
+    A cluster of s members occupies max(1, ceil(s / L)) blocks, each with a
+    copy of the cluster's centroid row, members in ascending id order.
+    Returns (blocks x.dtype[k_phys, L, d] zero-padded, ids int32[k_phys, L],
+    physical centroids [k_phys, d]).
+    """
+    n, d = x.shape
+    counts = np.bincount(assign, minlength=k)
+    blocks_per_cluster = np.maximum(1, -(-counts // L))
+    block_base = np.concatenate([[0], np.cumsum(blocks_per_cluster)])
+    k_phys = int(block_base[-1])
+
+    order = np.argsort(assign, kind="stable")
+    a_s = assign[order]
+    starts = np.searchsorted(a_s, np.arange(k))
+    rank = np.arange(n) - starts[a_s]
+    phys_block = block_base[a_s] + rank // L
+    phys_pos = rank % L
+
+    blocks = np.zeros((k_phys, L, d), x.dtype)
+    ids = np.full((k_phys, L), -1, np.int32)
+    blocks[phys_block, phys_pos] = x[order]
+    ids[phys_block, phys_pos] = order
+    return blocks, ids, np.repeat(centroids, blocks_per_cluster, axis=0)
+
+
+@dataclass(frozen=True)
+class IvfIndex:
+    """Padded-cluster IVF index over unit-norm f32 (or int8) vectors."""
+
+    centroids: torch.Tensor  # f32[k, d]
+    blocks: torch.Tensor  # bf16|f32|i8[k, L, d] cluster-padded vectors
+    block_ids: torch.Tensor  # int32[k, L], -1 padding
+    block_scales: torch.Tensor  # f32[k, L]: per-row score scale (1.0 unless int8)
+    n_total: int
+
+    @property
+    def k(self) -> int:
+        return int(self.centroids.shape[0])
+
+    @property
+    def cluster_cap(self) -> int:
+        return int(self.blocks.shape[1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.blocks.device
+
+    @classmethod
+    def build(
+        cls,
+        raw_vectors,
+        *,
+        n_clusters: int | None = None,
+        kmeans_iters: int = 12,
+        cluster_cap: int | None = None,
+        dtype: str = "bfloat16",
+        seed: int = 0,
+        device="cuda",
+    ) -> "IvfIndex":
+        """Train the coarse quantizer on ``device`` and lay out fixed-size
+        sub-blocks (``cluster_cap`` rounded up to a multiple of 8 is the
+        block size L)."""
+        if dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got {dtype!r}")
+        x = D.normalize(D.as_f32(raw_vectors, device))
+        n = x.shape[0]
+        if n_clusters is None:
+            n_clusters = max(8, int(np.sqrt(n) * 1.5) // 8 * 8)
+        k = n_clusters
+        centroids, assign = kmeans.train_kmeans(x, k, iters=kmeans_iters, seed=seed)
+        if cluster_cap is None:
+            cluster_cap = min(512, max(64, int(np.ceil(n / k * 1.5))))
+        L = -(-cluster_cap // 8) * 8
+        blocks, ids, cent = layout_blocks(x.cpu().numpy(), centroids.cpu().numpy(), assign.cpu().numpy(), k, L)
+        return cls._from_f32_blocks(blocks, ids, cent, n, dtype, x.device)
+
+    @classmethod
+    def _from_f32_blocks(cls, blocks, ids, cent, n, dtype, device) -> "IvfIndex":
+        b = torch.as_tensor(blocks, device=device)
+        scales = torch.ones(ids.shape, dtype=torch.float32, device=device)
+        if dtype == "int8":
+            # rows are unit-norm f32 before quantization; int8 rows are not,
+            # so cosine ranking needs the per-row reciprocal norm as a scale
+            b = D.quantize_i8(b)
+            scales = D.inv_norms_i8(b)
+        else:
+            b = b.to(_DTYPES[dtype])
+        return cls(
+            centroids=torch.as_tensor(cent, device=device),
+            blocks=b,
+            block_ids=torch.as_tensor(ids, device=device),
+            block_scales=scales,
+            n_total=n,
+        )
+
+    # -- extension -----------------------------------------------------------
+
+    def append(self, raw_vectors) -> "IvfIndex":
+        """Extend a built index with new elements (functional update).
+
+        Each new vector goes to its nearest existing cluster, fills that
+        cluster's free padding slots first, and only the overflow is laid
+        out as fresh sub-blocks carrying a copy of the cluster's centroid
+        row.  New elements get ids ``n_total .. n_total + len(raw) - 1``.
+        """
+        x_t = D.normalize(D.as_f32(raw_vectors, self.device))
+        x = x_t.cpu().numpy()
+        m, d = x.shape
+        if d != self.blocks.shape[2]:
+            raise ValueError(f"dimension mismatch: {d} != {self.blocks.shape[2]}")
+        L = self.cluster_cap
+
+        # nearest physical centroid; duplicated rows tie and argmax takes the
+        # first, i.e. the first block of the cluster's contiguous run
+        assign = kmeans.assign_clusters(x_t, self.centroids).cpu().numpy()
+
+        # runs of bit-identical (duplicated) centroid rows: one logical cluster each
+        cent_np = self.centroids.cpu().numpy()
+        same = np.all(cent_np[1:] == cent_np[:-1], axis=1)
+        run_id = np.concatenate([[0], np.cumsum(~same)]).astype(np.int64)
+        n_runs = int(run_id[-1]) + 1
+
+        # free slots, grouped by run (block-major order keeps runs contiguous)
+        ids_np = self.block_ids.cpu().numpy()
+        free_b, free_p = np.nonzero(ids_np < 0)
+        free_run = run_id[free_b]
+        free_count = np.bincount(free_run, minlength=n_runs)
+        free_start = np.concatenate([[0], np.cumsum(free_count)])
+
+        # rank each new member within its run
+        member_run = run_id[assign]
+        order = np.argsort(member_run, kind="stable")
+        r_s = member_run[order]
+        uniq, starts = np.unique(r_s, return_index=True)
+        rank = np.arange(m) - starts[np.searchsorted(uniq, r_s)]
+
+        in_free = rank < free_count[r_s]
+        slot_idx = free_start[r_s] + np.minimum(rank, np.maximum(free_count[r_s] - 1, 0))
+        fill_b = free_b[slot_idx[in_free]]
+        fill_p = free_p[slot_idx[in_free]]
+        fill_x = x[order[in_free]]
+        fill_ids = (self.n_total + order[in_free]).astype(np.int32)
+
+        # overflow spills into fresh sub-blocks per run
+        sp_mask = ~in_free
+        sp_run = r_s[sp_mask]
+        sp_rank = rank[sp_mask] - free_count[sp_run]
+        sp_uniq, sp_starts = np.unique(sp_run, return_index=True)
+        sp_sizes = np.diff(np.append(sp_starts, len(sp_run)))
+        blocks_per = -(-sp_sizes // L)
+        new_base = np.concatenate([[0], np.cumsum(blocks_per)])
+        k_new = int(new_base[-1])
+
+        grp = np.searchsorted(sp_uniq, sp_run)
+        new_blocks = np.zeros((k_new, L, d), np.float32)
+        new_ids = np.full((k_new, L), -1, np.int32)
+        new_blocks[new_base[grp] + sp_rank // L, sp_rank % L] = x[order[sp_mask]]
+        new_ids[new_base[grp] + sp_rank // L, sp_rank % L] = self.n_total + order[sp_mask]
+        # centroid row of each spilling run = its first block's row
+        run_first = np.concatenate([[0], np.nonzero(~same)[0] + 1])
+        new_cent = np.repeat(cent_np[run_first[sp_uniq]], blocks_per, axis=0)
+
+        # updated copies (functional update), written on the index's device
+        dev = self.device
+        fb = torch.as_tensor(fill_b, device=dev)
+        fp = torch.as_tensor(fill_p, device=dev)
+        blocks = self.blocks.clone()
+        scales = self.block_scales.clone()
+        ids_out = self.block_ids.clone()
+        fx = torch.as_tensor(fill_x, device=dev)
+        nb = torch.as_tensor(new_blocks, device=dev)
+        if self.blocks.dtype == torch.int8:
+            q8 = D.quantize_i8(fx)
+            blocks[fb, fp] = q8
+            scales[fb, fp] = D.inv_norms_i8(q8)
+            nb = D.quantize_i8(nb)
+            nscales = D.inv_norms_i8(nb)
+        else:
+            blocks[fb, fp] = fx.to(blocks.dtype)
+            nb = nb.to(blocks.dtype)
+            nscales = torch.ones((k_new, L), dtype=torch.float32, device=dev)
+        ids_out[fb, fp] = torch.as_tensor(fill_ids, device=dev)
+
+        return IvfIndex(
+            centroids=torch.cat([self.centroids, torch.as_tensor(new_cent, device=dev)]),
+            blocks=torch.cat([blocks, nb]),
+            block_ids=torch.cat([ids_out, torch.as_tensor(new_ids, device=dev)]),
+            block_scales=torch.cat([scales, nscales]),
+            n_total=self.n_total + m,
+        )
+
+    # -- persistence ---------------------------------------------------------
+    # The JAX package's single-artifact format: the 1024-byte metadata block,
+    # then centroids, blocks, ids and (int8 only) scales back to back.  bf16
+    # blocks are written and read as their raw 16-bit patterns.
+
+    def save(self, path: str) -> None:
+        dtype = _DTYPE_NAMES[self.blocks.dtype]
+        blocks = self.blocks.view(torch.int16) if dtype == "bfloat16" else self.blocks
+        k, L, d = self.blocks.shape
+        meta = {
+            "granne_tpu_version": gio.LIBRARY_VERSION,
+            "version": gio.SERIALIZATION_VERSION,
+            "k_phys": int(k),
+            "cluster_cap": int(L),
+            "dim": int(d),
+            "dtype": dtype,
+            "n_total": int(self.n_total),
+            "has_scales": dtype == "int8",
+        }
+        parts = [self.centroids, blocks, self.block_ids] + ([self.block_scales] if dtype == "int8" else [])
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            gio._write_metadata(f, IVF_MAGIC, meta)
+            for t in parts:
+                f.write(np.ascontiguousarray(t.cpu().numpy()).tobytes())
+        os.replace(tmp, path)
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "IvfIndex":
+        """Load an index written by either package onto ``device``."""
+        with open(path, "rb") as f:
+            meta = gio._read_metadata(f.read(gio.METADATA_LEN), IVF_MAGIC)
+        k, L, d = meta["k_phys"], meta["cluster_cap"], meta["dim"]
+        src = gio._Source(path)
+        off = gio.METADATA_LEN
+
+        def take(dtype, shape):
+            nonlocal off
+            arr = np.array(src.region(dtype, off, shape))
+            off += arr.nbytes
+            return torch.as_tensor(arr, device=device)
+
+        cent = take("<f4", (k, d))
+        blocks = take(_FILE_DTYPES[meta["dtype"]], (k, L, d))
+        if meta["dtype"] == "bfloat16":
+            blocks = blocks.view(torch.bfloat16)
+        bids = take("<i4", (k, L))
+        if meta["has_scales"]:
+            scales = take("<f4", (k, L))
+        else:
+            scales = torch.ones((k, L), dtype=torch.float32, device=device)
+        return cls(centroids=cent, blocks=blocks, block_ids=bids, block_scales=scales, n_total=meta["n_total"])
+
+    # -- search ------------------------------------------------------------
+
+    def search_batch(
+        self,
+        queries,
+        num_neighbors: int = 10,
+        *,
+        nprobe: int = 16,
+        query_chunk: int = 256,
+        grouped: bool = True,
+        group_cap: int = 32,
+        fused_topk: bool = False,
+        slot_group: int = 8,
+    ):
+        """Top ``num_neighbors`` of each query: (ids int32[B, k], dists f32[B, k]).
+
+        ``grouped`` (default) scores each probed block once against every
+        query that probes it: with CUDA tensors through K4 (``slot_group``
+        slots per thread block; ``slot_group=1`` is K3), or through the
+        fused score + top-k kernel K5 with ``fused_topk=True``.
+        ``grouped=False`` gathers each query's blocks (plain PyTorch, in
+        chunks of ``query_chunk`` queries).
+        """
+        q = D.normalize(D.as_f32(queries, self.device))
+        if grouped:
+            B = q.shape[0]
+            num_slots = min(B * nprobe, self.k + (B * nprobe) // group_cap + 8)
+            return _ivf_search_grouped(
+                self.centroids, self.blocks, self.block_ids, self.block_scales, q,
+                nprobe=nprobe, k_out=num_neighbors, group_cap=group_cap, num_slots=num_slots,
+                use_pallas_topk=fused_topk, slot_group=slot_group,
+            )
+        return _ivf_search(
+            self.centroids, self.blocks, self.block_ids, self.block_scales, q,
+            nprobe=nprobe, k_out=num_neighbors, query_chunk=query_chunk,
+        )
+
+
+def _probe(q, centroids, nprobe):
+    """Coarse scores -> [B, nprobe] probed blocks, ties to the lower block."""
+    return top_k(q @ centroids.to(torch.float32).T, nprobe)[1]
+
+
+def _ivf_search_grouped(
+    centroids, blocks, block_ids, block_scales, q, *, nprobe, k_out, group_cap, num_slots,
+    use_pallas_topk=False, slot_group=8,
+):
+    """Cluster-centric scoring: each probed block is read once and scored
+    against every query probing it.  Hot blocks probed by more than
+    ``group_cap`` queries spill into further slots (no dropped work).
+
+    ``use_pallas_topk`` keeps the JAX package's name for the fused route
+    (K5).
+    """
+    B = q.shape[0]
+    L = blocks.shape[1]
+    S = num_slots
+    probes = _probe(q, centroids, nprobe)  # [B, nprobe]
+
+    P = B * nprobe
+    pair_keys = probes.reshape(-1).to(torch.int32)
+    pair_idx = torch.arange(P, dtype=torch.int32, device=q.device)
+    slot_keys, slot_pairs, item_slot, item_pos, sorted_pairs, _ = group_pairs(
+        pair_keys, pair_idx, cap=group_cap, num_slots=S
+    )
+
+    # per-slot block + query group; an unused slot is clamped to block 0,
+    # scored, and masked below
+    safe_keys = torch.clamp(slot_keys, 0, blocks.shape[0] - 1).contiguous()
+    slot_queries = torch.where(slot_pairs >= 0, slot_pairs // nprobe, 0)
+    qg = q.to(torch.bfloat16)[slot_queries.long()]  # [S, cap, d]
+    lin = torch.where(item_slot >= 0, item_slot * group_cap + item_pos, 0).long()
+    dropped = (item_slot < 0)[:, None]
+    order = sorted_pairs.long()
+
+    if use_pallas_topk:
+        # fused score + per-slot top-k: the [S, cap, L] scores stay on chip,
+        # and the merge shrinks from width L to width k_out; the union of
+        # per-slot top-k_out holds the global top-k_out, so it stays exact
+        vals, vids = ivf_score.ivf_score_topk(blocks, block_ids, block_scales, safe_keys, qg, k_out=k_out)
+        occupied = (slot_pairs >= 0)[:, :, None]
+        vals = torch.where(occupied, vals, -torch.inf)
+        vids = torch.where(occupied, vids, -1)
+        Kp = vals.shape[2]
+        rows = torch.where(dropped, -torch.inf, vals.reshape(S * group_cap, Kp)[lin])
+        id_rows = torch.where(dropped, -1, vids.reshape(S * group_cap, Kp)[lin])
+        width = Kp
+    else:
+        if slot_group == 1:
+            scores = ivf_score.ivf_score_slots(blocks, safe_keys, qg)
+        else:
+            scores = ivf_score.ivf_score_slots_grouped(blocks, safe_keys, qg, group=slot_group)
+        keys = safe_keys.long()
+        ids_g = block_ids[keys]  # [S, L]
+        scores = scores * block_scales[keys][:, None, :]
+        valid = (slot_pairs >= 0)[:, :, None] & (ids_g >= 0)[:, None, :]
+        scores = torch.where(valid, scores, -torch.inf)
+        # each (slot, pos) score row back to its original pair
+        rows = torch.where(dropped, -torch.inf, scores.reshape(S * group_cap, L)[lin])
+        id_rows = torch.where(dropped, -1, ids_g[torch.clamp_min(item_slot, 0).long()])
+        width = L
+
+    out_scores = torch.full((P, width), -torch.inf, dtype=torch.float32, device=q.device)
+    out_ids = torch.full((P, width), -1, dtype=torch.int32, device=q.device)
+    out_scores[order] = rows  # sorted_pairs is a permutation of the pairs
+    out_ids[order] = id_rows
+    v, pos = top_k(out_scores.reshape(B, nprobe * width), k_out)
+    ids = torch.gather(out_ids.reshape(B, nprobe * width), 1, pos)
+    return ids, torch.clamp_min(1.0 - v, 0.0)
+
+
+def _ivf_search(centroids, blocks, block_ids, block_scales, q, *, nprobe, k_out, query_chunk):
+    """Per-query block gather + scoring, ``query_chunk`` queries at a time."""
+    ids_out, d_out = [], []
+    for lo in range(0, q.shape[0], query_chunk):
+        qc = q[lo : lo + query_chunk]
+        probes = _probe(qc, centroids, nprobe).long()  # [Qc, nprobe]
+        pb = blocks[probes].to(torch.bfloat16).to(torch.float32)  # [Qc, nprobe, L, d]
+        pids = block_ids[probes]  # [Qc, nprobe, L]
+        dots = torch.einsum("qpld,qd->qpl", pb, qc.to(torch.bfloat16).to(torch.float32))
+        dots = torch.where(pids >= 0, dots * block_scales[probes], -torch.inf)
+        Qc = qc.shape[0]
+        v, pos = top_k(dots.reshape(Qc, -1), k_out)
+        ids_out.append(torch.gather(pids.reshape(Qc, -1), 1, pos))
+        d_out.append(torch.clamp_min(1.0 - v, 0.0))
+    return torch.cat(ids_out), torch.cat(d_out)

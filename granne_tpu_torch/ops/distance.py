@@ -10,11 +10,17 @@ JAX package asks for the same with ``preferred_element_type=float32``).
 distance, which reorders the beam.  TF32 must be off for the same reason
 the reference pins ``Precision.HIGHEST``: truncated products cost recall
 (see ``full_f32``).
+
+int8 vectors are max-abs quantized to [-127, 127] and are not unit norm;
+their cosine needs the per-row reciprocal norm (``inv_norms_i8``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+MAX_QVALUE = 127.0
 
 
 def full_f32() -> None:
@@ -23,12 +29,46 @@ def full_f32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def as_f32(x, device) -> torch.Tensor:
+    """A tensor (moved) or array-like (copied) as f32 on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
+
+
 def normalize(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """L2-normalize along ``axis``; zero vectors are left as zeros."""
     x = x.to(torch.float32)
     norm = torch.sqrt(torch.sum(x * x, dim=axis, keepdim=True))
     ok = norm > 0.0
     return torch.where(ok, x / torch.where(ok, norm, torch.ones_like(norm)), x)
+
+
+def quantize_i8(x: torch.Tensor, rounding: str = "trunc") -> torch.Tensor:
+    """Max-abs quantize f32 rows to int8 in [-127, 127] (a zero row stays zero).
+
+    The codes are bit-equal to the JAX package's: the same op order
+    (``x * MAX_QVALUE / denom``) rounds the same in f32.  ``"trunc"``
+    truncates like the reference's ``as i8``; ``"nearest"`` rounds half to
+    even, as ``jnp.round`` does.
+    """
+    x = x.to(torch.float32)
+    max_abs = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    denom = torch.where(max_abs > 0.0, max_abs, torch.full_like(max_abs, MAX_QVALUE))
+    scaled = x * MAX_QVALUE / denom
+    if rounding == "nearest":
+        return torch.round(scaled).to(torch.int8)
+    if rounding != "trunc":
+        raise ValueError(f"rounding must be 'trunc' or 'nearest', got {rounding!r}")
+    return torch.trunc(scaled).to(torch.int8)
+
+
+def inv_norms_i8(v: torch.Tensor) -> torch.Tensor:
+    """Per-row 1/||v|| for int8 vectors (0.0 for zero rows), squares summed in int32."""
+    v32 = v.to(torch.int32)
+    norm = torch.sqrt(torch.sum(v32 * v32, dim=-1, dtype=torch.int32).to(torch.float32))
+    ok = norm > 0.0
+    return torch.where(ok, 1.0 / torch.where(ok, norm, torch.ones_like(norm)), torch.zeros_like(norm))
 
 
 def angular_dist_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

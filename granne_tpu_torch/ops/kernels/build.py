@@ -5,7 +5,8 @@ it is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/granne_tpu_torch/lib<name>.so`` beside the package (a directory
 that git ignores) and loaded with ctypes; the shared adjacency codec
 (``native/``) goes the same way with g++.  A library is rebuilt when its
-source is newer.  A failed build raises with the compiler's output: no
+source is newer.  Different libraries may build at the same time (one
+lock per library).  A failed build raises with the compiler's output: no
 caller falls back to another path.
 """
 
@@ -27,7 +28,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_lock = threading.Lock()
+_locks_guard = threading.Lock()
+_locks: dict[Path, threading.Lock] = {}
 _loaded: dict[Path, ctypes.CDLL] = {}
 
 
@@ -72,7 +74,9 @@ def load_library(src: Path, out: Path, compile_cmd, signatures: dict) -> ctypes.
     ``signatures`` maps each C function to ``(restype, argtypes)``, set once
     when the library is first loaded in this process.
     """
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(out, threading.Lock())
+    with lock:
         lib = _loaded.get(out)
         if lib is not None:
             return lib

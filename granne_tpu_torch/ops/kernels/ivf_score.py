@@ -1,0 +1,205 @@
+"""K3, K4, K5: IVF slot scoring and fused scoring + per-row top-k.
+
+Replace the Pallas TPU kernels of ``granne_tpu/ops/pallas/ivf_score.py``:
+``ivf_score_slots`` (K3), ``ivf_score_slots_grouped`` (K4) and
+``ivf_score_topk`` (K5).  The CUDA kernel is
+``granne_tpu_torch/csrc/ivf_score.cu`` (its header says what bounds it on
+the H100 and how the design answers that): one kernel body with the slot
+group G as a parameter, G = 1 for K3, and a top-k epilogue for K5.
+
+Unlike the Pallas kernels, blocks may be bf16, f32 or int8 for every one of
+them (each element is rounded to bf16 as the JAX einsum does), any ``d``
+works (the ``d % 128`` gate of ``index/ivf.py`` is a Mosaic rule), and S is
+never padded to a multiple of G.  ``qg`` is bf16, as the JAX callers cast it.
+
+Each public function runs its plain PyTorch version (``*_reference``) for
+CPU tensors and the kernel for CUDA tensors; for a CUDA tensor it launches
+the kernel or raises.  ``<function>.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..topk import top_k
+from .build import load_cuda_library
+
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "gt_ivf_score_slots": (
+        _I,
+        [
+            _P, _I, _LL, _I, _I,  # blocks, dtype, k, L, d
+            _P, _I, _P, _I, _I,  # slot_keys, S, qg, cap, group
+            _P, _I, _P,  # out, device, stream
+        ],
+    ),
+    "gt_ivf_score_topk": (
+        _I,
+        [
+            _P, _I, _LL, _I, _I,  # blocks, dtype, k, L, d
+            _P, _P,  # block_ids, block_scales
+            _P, _I, _P, _I, _I,  # slot_keys, S, qg, cap, group
+            _I, _I, _P, _P,  # kp, k_out, out_v, out_i
+            _I, _P,  # device, stream
+        ],
+    ),
+    "gt_ivf_cuda_error_string": (ctypes.c_char_p, [_I]),
+}
+
+
+def load_kernel():
+    """Build (at first use) and load the kernels' library."""
+    return load_cuda_library("ivf_score", _SIGNATURES)
+
+
+def _check(blocks, slot_keys, qg) -> None:
+    if blocks.ndim != 3 or blocks.dtype not in _DTYPE_CODES or not blocks.is_contiguous():
+        raise ValueError(f"blocks must be contiguous bf16|f32|i8[k, L, d], got {blocks.dtype}{tuple(blocks.shape)}")
+    if slot_keys.ndim != 1 or slot_keys.dtype != torch.int32 or not slot_keys.is_contiguous():
+        raise ValueError(f"slot_keys must be contiguous int32[S], got {slot_keys.dtype}{tuple(slot_keys.shape)}")
+    S, d = slot_keys.shape[0], blocks.shape[2]
+    if qg.ndim != 3 or qg.shape[0] != S or qg.shape[2] != d or qg.dtype != torch.bfloat16 or not qg.is_contiguous():
+        raise ValueError(f"qg must be contiguous bf16[{S}, cap, {d}], got {qg.dtype}{tuple(qg.shape)}")
+    if not (blocks.device == slot_keys.device == qg.device):
+        raise ValueError(f"tensors on different devices: {blocks.device}, {slot_keys.device}, {qg.device}")
+    if blocks.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"IVF scoring takes cpu or cuda tensors, got {blocks.device}")
+
+
+def _check_cols(blocks, block_ids, block_scales) -> None:
+    k, L = blocks.shape[:2]
+    if block_ids.shape != (k, L) or block_ids.dtype != torch.int32 or not block_ids.is_contiguous():
+        raise ValueError(f"block_ids must be contiguous int32[{k}, {L}], got {block_ids.dtype}{tuple(block_ids.shape)}")
+    if block_scales.shape != (k, L) or block_scales.dtype != torch.float32 or not block_scales.is_contiguous():
+        raise ValueError(
+            f"block_scales must be contiguous f32[{k}, {L}], got {block_scales.dtype}{tuple(block_scales.shape)}"
+        )
+    if not (blocks.device == block_ids.device == block_scales.device):
+        raise ValueError("blocks, block_ids and block_scales on different devices")
+
+
+def _gather_bf16(blocks, slot_keys):
+    """The slots' blocks rounded to bf16, as f32 [S, L, d] (clamped keys)."""
+    keys = slot_keys.long().clamp(0, blocks.shape[0] - 1)
+    return blocks.index_select(0, keys).to(torch.bfloat16).to(torch.float32)
+
+
+def ivf_score_slots_reference(blocks, slot_keys, qg):
+    """Plain PyTorch version of K3/K4: gather, bf16 rounding, f32 contraction."""
+    return torch.bmm(qg.to(torch.float32), _gather_bf16(blocks, slot_keys).transpose(1, 2))
+
+
+def ivf_score_topk_reference(blocks, block_ids, block_scales, slot_keys, qg, *, k_out: int):
+    """Plain PyTorch version of K5: scores, scale, mask, then a stable
+    descending sort, so equal scores keep the lower column first."""
+    S, cap = qg.shape[:2]
+    L = blocks.shape[1]
+    keys = slot_keys.long().clamp(0, blocks.shape[0] - 1)
+    ids_g = block_ids.index_select(0, keys)  # [S, L]
+    scores = ivf_score_slots_reference(blocks, slot_keys, qg) * block_scales.index_select(0, keys)[:, None, :]
+    scores = torch.where((ids_g >= 0)[:, None, :], scores, -torch.inf)
+    kp = min(k_out, L)
+    vals, pos = top_k(scores, kp)
+    ids = torch.gather(ids_g[:, None, :].expand(S, cap, L), 2, pos)
+    ids = torch.where(vals > -torch.inf, ids, -1)
+    out_v = torch.full((S, cap, k_out), -torch.inf, dtype=torch.float32, device=qg.device)
+    out_i = torch.full((S, cap, k_out), -1, dtype=torch.int32, device=qg.device)
+    out_v[:, :, :kp] = vals
+    out_i[:, :, :kp] = ids
+    return out_v, out_i
+
+
+def _launch_scores(blocks, slot_keys, qg, group: int):
+    lib = load_kernel()
+    k, L, d = blocks.shape
+    S, cap, _ = qg.shape
+    out = torch.empty((S, cap, L), dtype=torch.float32, device=blocks.device)
+    if out.numel() == 0:
+        return out
+    if blocks.data_ptr() % 16:
+        raise ValueError("blocks must start on a 16-byte boundary")
+    stream = torch.cuda.current_stream(blocks.device)
+    err = lib.gt_ivf_score_slots(
+        blocks.data_ptr(), _DTYPE_CODES[blocks.dtype], k, L, d,
+        slot_keys.data_ptr(), S, qg.data_ptr(), cap, group,
+        out.data_ptr(), blocks.device.index, stream.cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"IVF slot scoring launch failed: {lib.gt_ivf_cuda_error_string(err).decode()}")
+    return out
+
+
+def ivf_score_slots(blocks, slot_keys, qg):
+    """K3: f32[S, cap, L] raw dot scores, one slot per thread block.
+
+    blocks: bf16|f32|i8[k, L, d]; slot_keys: int32[S] block of each slot
+    (clamped into [0, k)); qg: bf16[S, cap, d] each slot's query group.
+    """
+    _check(blocks, slot_keys, qg)
+    if blocks.device.type == "cpu":
+        return ivf_score_slots_reference(blocks, slot_keys, qg)
+    out = _launch_scores(blocks, slot_keys, qg, 1)
+    ivf_score_slots.launches += 1
+    return out
+
+
+def ivf_score_slots_grouped(blocks, slot_keys, qg, *, group: int = 8):
+    """K4: K3's result with ``group`` slots per thread block, the next
+    slot's block copy in flight while the current one is scored."""
+    _check(blocks, slot_keys, qg)
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
+    if blocks.device.type == "cpu":
+        return ivf_score_slots_reference(blocks, slot_keys, qg)
+    out = _launch_scores(blocks, slot_keys, qg, group)
+    ivf_score_slots_grouped.launches += 1
+    return out
+
+
+def ivf_score_topk(blocks, block_ids, block_scales, slot_keys, qg, *, k_out: int):
+    """K5: fused scoring + per-(slot, row) top-k.
+
+    Scores are multiplied by ``block_scales`` and set to -inf where
+    ``block_ids < 0``; each (slot, query row) keeps its K' = min(k_out, L)
+    best, ties to the lower column.  Returns (vals f32[S, cap, k_out],
+    ids int32[S, cap, k_out]) with (-inf, -1) padding and ids -1 wherever
+    the value is -inf.  One slot per thread block, as the Pallas kernel
+    has one slot per grid step.
+    """
+    _check(blocks, slot_keys, qg)
+    _check_cols(blocks, block_ids, block_scales)
+    if k_out < 1:
+        raise ValueError(f"k_out must be >= 1, got {k_out}")
+    if blocks.device.type == "cpu":
+        return ivf_score_topk_reference(blocks, block_ids, block_scales, slot_keys, qg, k_out=k_out)
+    lib = load_kernel()
+    k, L, d = blocks.shape
+    S, cap, _ = qg.shape
+    out_v = torch.full((S, cap, k_out), -torch.inf, dtype=torch.float32, device=blocks.device)
+    out_i = torch.full((S, cap, k_out), -1, dtype=torch.int32, device=blocks.device)
+    if out_v.numel() == 0:
+        return out_v, out_i
+    if blocks.data_ptr() % 16:
+        raise ValueError("blocks must start on a 16-byte boundary")
+    stream = torch.cuda.current_stream(blocks.device)
+    err = lib.gt_ivf_score_topk(
+        blocks.data_ptr(), _DTYPE_CODES[blocks.dtype], k, L, d,
+        block_ids.data_ptr(), block_scales.data_ptr(),
+        slot_keys.data_ptr(), S, qg.data_ptr(), cap, 1,
+        min(k_out, L), k_out, out_v.data_ptr(), out_i.data_ptr(),
+        blocks.device.index, stream.cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"ivf_score_topk launch failed: {lib.gt_ivf_cuda_error_string(err).decode()}")
+    ivf_score_topk.launches += 1
+    return out_v, out_i
+
+
+ivf_score_slots.launches = 0
+ivf_score_slots_grouped.launches = 0
+ivf_score_topk.launches = 0

@@ -18,6 +18,15 @@ def sort_by_key(key: torch.Tensor, *values: torch.Tensor):
     return (sk,) + tuple(torch.gather(v, -1, order) for v in values)
 
 
+def top_k(scores: torch.Tensor, k: int):
+    """The ``k`` largest along the last axis, best first, ties to the lower
+    index (``lax.top_k``'s order; ``torch.topk`` promises none).
+    Returns (values, positions)."""
+    cols = torch.arange(scores.shape[-1], device=scores.device).expand_as(scores)
+    neg, pos = sort_by_key(-scores, cols)
+    return -neg[..., :k], pos[..., :k]
+
+
 def merge_sorted_topk(a_d, a_vals, b_d, b_vals, k: int):
     """Merge two keyed sets along the last axis; keep the ``k`` smallest,
     sorted ascending.  Ties keep the ``a`` side (stable sort over

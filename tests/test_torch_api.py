@@ -8,6 +8,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +20,17 @@ from granne_tpu_torch import AngularVectors, GranneBuilder, compute_distance, co
 from granne_tpu_torch import api
 from granne_tpu_torch.index import io
 from granne_tpu_torch.index.granne import Granne
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_compiled_jax():
+    """Drop every compiled JAX program before and after this module: each
+    XLA:CPU executable holds memory maps, and one test process that runs
+    many JAX-heavy files can reach vm.max_map_count and crash."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, D, NQ, K = 2000, 32, 256, 10

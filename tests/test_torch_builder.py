@@ -6,6 +6,7 @@ Jaccard above 0.95 (the multi-device parity bar of ``__graft_entry__.py``).
 The remaining cases mirror ``tests/test_builder.py`` on the port.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -15,6 +16,17 @@ from granne_tpu.index import schedule as jschedule
 from granne_tpu.models import scalar_ref
 from granne_tpu_torch import MAX_ELEMENTS, AngularVectors, BuildConfig, Granne, build_layers
 from granne_tpu_torch.index import schedule
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_compiled_jax():
+    """Drop every compiled JAX program before and after this module: each
+    XLA:CPU executable holds memory maps, and one test process that runs
+    many JAX-heavy files can reach vm.max_map_count and crash."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
 
 N, D = 2000, 32
 CFG = dict(num_neighbors=12, max_search=32)

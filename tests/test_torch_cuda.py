@@ -1,4 +1,5 @@
-"""K1 on the card: the CUDA kernel against its plain PyTorch version.
+"""The CUDA kernels on the card (K1, K3, K4, K5) against their plain
+PyTorch versions, and the searches that launch them.
 
 Needs an NVIDIA GPU and nvcc; every test skips elsewhere.  This file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -13,6 +14,7 @@ import torch
 import granne_tpu_torch as g
 from granne_tpu_torch.index.granne import Granne
 from granne_tpu_torch.ops import distance
+from granne_tpu_torch.ops.kernels import ivf_score as K
 from granne_tpu_torch.ops.kernels.nbr_score import gather_score_flat, gather_score_flat_reference
 from granne_tpu_torch.ops.nbr_cache import pack_rows
 
@@ -75,3 +77,111 @@ def test_cached_search_runs_k1_and_matches_cpu(cuda):
     overlap = np.mean([len(set(a) & set(c)) / 5 for a, c in zip(ids.cpu().numpy(), cids.numpy())])
     assert overlap > 0.99
     np.testing.assert_allclose(np.sort(d.cpu().numpy()), np.sort(cd.numpy()), atol=1e-5)
+
+
+def _ivf_case(dev, dtype, k, L, d, S, cap, seed=0):
+    """Unit-norm blocks (int8: their max-abs codes and inverse norms), bf16
+    queries, a padded tail of -1 ids in every block, random slot keys."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = distance.normalize(torch.randn((k, L, d), generator=gen, device=dev))
+    scales = torch.ones((k, L), dtype=torch.float32, device=dev)
+    if dtype == torch.int8:
+        blocks = distance.quantize_i8(rows)
+        scales = distance.inv_norms_i8(blocks)
+    else:
+        blocks = rows.to(dtype)
+    ids = torch.arange(k * L, dtype=torch.int32, device=dev).reshape(k, L)
+    ids[:, L - max(1, L // 5) :] = -1
+    keys = torch.randint(0, k, (S,), generator=gen, device=dev, dtype=torch.int32)
+    qg = distance.normalize(torch.randn((S, cap, d), generator=gen, device=dev)).to(torch.bfloat16)
+    return blocks, ids, scales, keys, qg
+
+
+IVF_CASES = [
+    # k, L, d, S, cap, group, k_out
+    (1000, 256, 100, 1520, 32, 8, 10),  # the serve shape (200k x 100 in 1,000 blocks, nprobe 4, 4,096 queries)
+    (64, 64, 48, 37, 16, 8, 10),  # S % G != 0: a shorter tail group
+    (6, 512, 300, 9, 32, 4, 10),  # one block is 307 KB (bf16) / 614 KB (f32): row tiles
+    (8, 8, 24, 5, 8, 2, 12),  # k_out > L: (-inf, -1) padding
+    (20, 40, 33, 11, 5, 3, 7),  # odd d, cap not a multiple of 8
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8], ids=["bf16", "f32", "i8"])
+@pytest.mark.parametrize("case", IVF_CASES, ids=[f"k{c[0]}-L{c[1]}-d{c[2]}-S{c[3]}" for c in IVF_CASES])
+def test_ivf_kernels_match_plain(cuda, dtype, case):
+    """K3/K4 within 1e-4 of plain on the cosine scale (raw dots times the
+    row's scale: int8 dots run to ~400); K5 values within 1e-4 and ids
+    equal wherever the plain values are not within 1e-4 of a neighbour.
+    Both sum exact bf16 products in f32; only the summation order differs."""
+    k, L, d, S, cap, group, k_out = case
+    blocks, ids, scales, keys, qg = _ivf_case(cuda, dtype, k, L, d, S, cap)
+    ref = K.ivf_score_slots_reference(blocks, keys, qg)
+    row_scale = scales[keys.long()][:, None, :]
+    before = (K.ivf_score_slots.launches, K.ivf_score_slots_grouped.launches, K.ivf_score_topk.launches)
+    k3 = K.ivf_score_slots(blocks, keys, qg)
+    k4 = K.ivf_score_slots_grouped(blocks, keys, qg, group=group)
+    v, i = K.ivf_score_topk(blocks, ids, scales, keys, qg, k_out=k_out)
+    torch.cuda.synchronize()
+    after = (K.ivf_score_slots.launches, K.ivf_score_slots_grouped.launches, K.ivf_score_topk.launches)
+    assert after == tuple(b + 1 for b in before)
+    for got in (k3, k4):
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        assert float(((got - ref) * row_scale).abs().max()) <= 1e-4
+    assert torch.equal(k3, k4)  # the same per-output summation order
+    rv, ri = K.ivf_score_topk_reference(blocks, ids, scales, keys, qg, k_out=k_out)
+    assert v.shape == rv.shape == (S, cap, k_out) and i.dtype == torch.int32
+    fin = torch.isfinite(rv)
+    assert torch.equal(torch.isfinite(v), fin) and torch.equal(i[~fin], ri[~fin])
+    assert bool((i[~fin] == -1).all())
+    assert float((v[fin] - rv[fin]).abs().max()) <= 1e-4
+    gaps = (rv[..., 1:] - rv[..., :-1]).abs()
+    near = torch.zeros_like(fin)
+    near[..., 1:] |= gaps <= 1e-4
+    near[..., :-1] |= gaps <= 1e-4
+    assert torch.equal(i[~near], ri[~near])
+
+
+def test_ivf_topk_ties_take_the_lower_column(cuda):
+    """Exactly duplicated block rows score equal in any order: K5 and its
+    plain version both rank the lower column first."""
+    blocks, ids, scales, keys, qg = _ivf_case(cuda, torch.bfloat16, 4, 64, 40, 6, 8)
+    blocks[2, 10] = blocks[2, 3]
+    blocks[2, 30] = blocks[2, 3]
+    keys[:] = 2
+    qg[:, 0] = blocks[2, 3]
+    v, i = K.ivf_score_topk(blocks, ids, scales, keys, qg, k_out=5)
+    rv, ri = K.ivf_score_topk_reference(blocks, ids, scales, keys, qg, k_out=5)
+    torch.cuda.synchronize()
+    want = ids[2, [3, 10, 30]]
+    assert torch.equal(i[:, 0, :3], want.expand(6, 3)) and torch.equal(ri[:, 0, :3], want.expand(6, 3))
+    assert bool((v[:, 0, 0] == v[:, 0, 2]).all())
+
+
+def test_ivf_search_on_card_matches_cpu(cuda):
+    """The same index searched on the card (K4, K3, K5) and on the CPU
+    (plain versions): ids overlap >= 0.99, and each route launched its kernel."""
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((40, 48)).astype(np.float32)
+    x = (centers[rng.integers(0, 40, 4000)] + 0.35 * rng.standard_normal((4000, 48))).astype(np.float32)
+    cpu = g.IvfIndex.build(x, n_clusters=32, kmeans_iters=5, cluster_cap=64, device="cpu")
+    card = g.IvfIndex(
+        centroids=cpu.centroids.to(cuda), blocks=cpu.blocks.to(cuda), block_ids=cpu.block_ids.to(cuda),
+        block_scales=cpu.block_scales.to(cuda), n_total=cpu.n_total,
+    )
+    q = x[:300]
+    want = cpu.search_batch(q, 10, nprobe=6)[0].numpy()
+    routes = [
+        (dict(), K.ivf_score_slots_grouped),
+        (dict(slot_group=1), K.ivf_score_slots),
+        (dict(fused_topk=True), K.ivf_score_topk),
+    ]
+    for kw, kernel in routes:
+        before = kernel.launches
+        ids, dists = card.search_batch(q, 10, nprobe=6, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert torch.isfinite(dists).all()
+        got = ids.cpu().numpy()
+        overlap = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got, want)])
+        assert overlap >= 0.99, (kw, overlap)

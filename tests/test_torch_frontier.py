@@ -5,6 +5,7 @@ port.  The serve path with a flat bf16 cache is compared with the JAX
 search through its Pallas flat kernel, interpreted on the CPU.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +20,17 @@ from granne_tpu_torch import AngularVectors, convert
 from granne_tpu_torch.index.granne import Granne
 from granne_tpu_torch.ops import frontier
 from granne_tpu_torch.ops.kernels.nbr_score import gather_score_flat
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_compiled_jax():
+    """Drop every compiled JAX program before and after this module: each
+    XLA:CPU executable holds memory maps, and one test process that runs
+    many JAX-heavy files can reach vm.max_map_count and crash."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
 
 N, D, M = 1200, 121, 8  # row_width(8, 121) = 1024: the JAX flat kernel's layout rule
 NQ, EF, K = 64, 16, 5

@@ -5,6 +5,7 @@ side runs the Pallas kernel interpreted, as its own tests do.  The CUDA
 kernel itself is checked on the card by tests/test_torch_cuda.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +17,17 @@ from granne_tpu.ops.pallas import nbr_score as jscore
 from granne_tpu_torch import AngularVectors
 from granne_tpu_torch.ops import nbr_cache
 from granne_tpu_torch.ops.kernels import build, nbr_score
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_compiled_jax():
+    """Drop every compiled JAX program before and after this module: each
+    XLA:CPU executable holds memory maps, and one test process that runs
+    many JAX-heavy files can reach vm.max_map_count and crash."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
 
 NAN_IDS = [0x7F85, 0xFF90, 0x1FF85]  # id halves that are bf16 NaN patterns
 

@@ -4,6 +4,7 @@ The same numpy inputs (fixed seeds) go through the JAX function and its
 PyTorch counterpart on the CPU.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +18,16 @@ from granne_tpu_torch import AngularVectors
 from granne_tpu_torch.elements.base import supports_cache
 from granne_tpu_torch.index import heuristic
 from granne_tpu_torch.ops import distance, topk
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_compiled_jax():
+    """Drop every compiled JAX program before and after this module: each
+    XLA:CPU executable holds memory maps, and one test process that runs
+    many JAX-heavy files can reach vm.max_map_count and crash."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
 
 
 def _t(x):
