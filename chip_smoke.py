@@ -4,6 +4,8 @@ starts and is right on an NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
+In the order it runs:
+
 1. Builds every CUDA kernel of the main paths from ``granne_tpu_torch/csrc``
    (and the shared adjacency codec with g++), all compilers started together.
 2. K1 (``gather_score_flat``) against its plain PyTorch version on the card
@@ -11,13 +13,9 @@ starts and is right on an NVIDIA GPU.
    exactly equal, dots within 1e-4 (both sum exact bf16 products in f32 and
    differ only in summation order), finite dots on half-unfilled rows, and
    both times from CUDA events.
-3. The main path through the public API: ``GranneBuilder.append`` ->
-   ``build`` -> ``save_index`` (compressed) / ``save_elements`` ->
-   ``load_granne`` -> bf16 copy + flat neighbor cache -> ``search_batch``,
-   on the synthetic data of ``bench.py`` (1000 Gaussian centres, sigma 0.35,
-   seed 42; 200,000 x 100 with 4,096 held-out queries), M=20, build ef=100.
-   Recall@10 against exact f32 ground truth must reach 0.95 at some
-   ef <= 120, and the search must have launched K1.
+3. K2 (``gather_score``) the same way on the tiled layout of that shape
+   (24 vectors of 128 lanes a row): dots within 1e-4, both times, K1's time
+   at the same E beside it.
 4. K3/K4/K5 (``ivf_score_slots``, ``ivf_score_slots_grouped``,
    ``ivf_score_topk``) against their plain versions on the card, with bf16,
    f32 and int8 blocks, at the IVF path's shape (1,000 blocks of L=256,
@@ -25,7 +23,26 @@ starts and is right on an NVIDIA GPU.
    (S % 8 != 0), and with blocks over 227 KB (L=512, d=300): K3/K4 within
    1e-4 on the cosine scale, K5 values within 1e-4 and ids equal except
    at near-ties; exactly tied rows rank the lower column first.
-5. The IVF main path through the public API on the same data (bench.py's
+5. The HNSW main path through the public API: ``GranneBuilder.append`` ->
+   ``build`` -> ``save_index`` (compressed) / ``save_elements`` ->
+   ``load_granne`` -> bf16 copy + flat neighbor cache -> ``search_batch``,
+   on the synthetic data of ``bench.py`` (1000 Gaussian centres, sigma 0.35,
+   seed 42; 200,000 x 100 with 4,096 held-out queries), M=20, build ef=100.
+   Recall@10 against exact f32 ground truth must reach 0.95 at some
+   ef <= 120, and the search must have launched K1.
+6. The cache-fed build on the same data:
+   ``GranneBuilder(..., neighbor_cache=True, neighbor_cache_layout="tiled")``
+   -> ``build`` (K2 in every wave's beam, merges fed from the cache) ->
+   save -> load -> bf16 copy served through the tiled cache (K2).  Recall@10
+   must reach 0.95 at some ef <= 120 and stay within 0.02 of step 5's
+   recall at that ef.  Then the f32 elements served through a
+   ``cache_dtype="f32"`` flat table (ids overlap the uncached f32 search
+   >= 0.999 at ef 32), and bf16 flat-cache serving reranked against the
+   f32 container (recall >= the same search without rerank).
+7. The flat cache-fed build (K1 in the build beam) at n=50,000: recall@10
+   >= 0.95 at some ef <= 120 against exact f32 ground truth over those
+   50,000.
+8. The IVF main path through the public API on the same data (bench.py's
    IVF row): ``IvfIndex.build(n_clusters=666, kmeans_iters=10,
    cluster_cap=256)`` in bf16 -> ``save`` -> ``load(device="cuda")`` ->
    ``search_batch`` of all 4,096 queries at nprobe 4..64.  Recall@10 must
@@ -35,8 +52,11 @@ starts and is right on an NVIDIA GPU.
    50,000-row chunks) whose recall at nprobe 16 is at most 0.01 below the
    int8 brute-force recall.  The path must have launched K3, K4 and K5.
 
-Any failed phase exits non-zero.  The last two lines of stdout are the
-kernel table and ``{"ok": true, "device": {...}}``.
+Each kernel's record carries the bound for its timed work (the larger of
+bytes over 3.35 TB/s and bf16 operations over 989 TFLOP/s, the H100 SXM
+peaks) and ``library_ms`` null: no single PyTorch call gathers rows by id
+and contracts them.  Any failed phase exits non-zero.  The last two lines
+of stdout are the kernel table and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -58,7 +78,14 @@ SERVE_B = 1024
 EFS = (32, 40, 60, 80, 120)
 TARGET_RECALL = 0.95
 K1_ATOL = 1e-4
+K2_ATOL = 1e-4
 TIMED_LAUNCHES = 50
+RECALL_SLACK = 0.02  # a cache-fed build may lose this much recall against the main path
+F32_OVERLAP = 0.999  # f32-table serving vs the uncached f32 search
+FLAT_BUILD_N = 50_000
+# H100 SXM peaks (NVIDIA's data sheet) for the bound of each kernel's work
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
 
 # IVF: bench.py's IVF row (n_clusters = N // 300, 10 k-means iterations, L = 256)
 IVF_CLUSTERS, IVF_ITERS, IVF_CAP = N // 300, 10, 256
@@ -96,8 +123,35 @@ def cuda_ms(fn, args_list, torch) -> float:
     return start.elapsed_time(end) / len(args_list)
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for work of ``nbytes`` moved and
+    ``flops`` bf16 operations, and which of the two bounds it."""
+    t_bytes, t_ops = float(nbytes) / HBM_BYTES_PER_S * 1e3, float(flops) / BF16_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def gather_bound(torch, sels, row_bytes: int, out_bytes_per_dot: int, M: int) -> dict:
+    """Bound of one neighbor-cache scorer call, averaged over the timed
+    ``sels``: each distinct selected row read once (its data lanes only),
+    the ids and queries read once, the outputs written once."""
+    B, E = sels[0].shape
+    rows = np.mean([int(torch.unique(s.clamp(0, N - 1)).numel()) for s in sels])
+    nbytes = rows * row_bytes + B * E * 4 + B * D * 2 + B * E * M * out_bytes_per_dot
+    return bound(nbytes, 2.0 * B * E * M * D)
+
+
+def timed_pair(torch, kernel, plain, args):
+    """(kernel ms, plain ms) per call: warmed, then plain, kernel, kernel,
+    plain so both sides see the same drift."""
+    cuda_ms(kernel, args[:3], torch)
+    cuda_ms(plain, args[:3], torch)
+    p1, k1, k2, p2 = (cuda_ms(f, args, torch) for f in (plain, kernel, kernel, plain))
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
 def k1_phase(torch):
-    """K1 vs its plain version at the serve shape.  Returns the kernel record."""
+    """K1 vs its plain version at the serve shape.  Returns the kernel record
+    (timed at E=1, the serving path's) and its times at each E."""
     from granne_tpu_torch.ops import distance
     from granne_tpu_torch.ops.kernels.nbr_score import gather_score_flat, gather_score_flat_reference
     from granne_tpu_torch.ops.nbr_cache import pack_rows
@@ -110,7 +164,7 @@ def k1_phase(torch):
     adj[1, :3] = torch.tensor([0x7F85, 0xFF90, 0x1FF85], dtype=torch.int32)  # NaN-pattern halves
     tab = pack_rows(vecs, "flat", ids=adj)
     del vecs
-    rec = {"max_abs_err": 0.0}
+    rec = {"max_abs_err": 0.0, "by_expand": {}}
     for E in (1, 4):
         sels = [
             torch.randint(-2, N, (SERVE_B, E), generator=gen, device=dev, dtype=torch.int32)
@@ -130,15 +184,57 @@ def k1_phase(torch):
         args = [(tab, s, q) for s in sels]
         kernel = lambda t, s, qq: gather_score_flat(t, s, qq, M=M, d=D)  # noqa: E731
         plain = lambda t, s, qq: gather_score_flat_reference(t, s, qq, M=M, d=D)  # noqa: E731
-        cuda_ms(kernel, args[:3], torch)
-        cuda_ms(plain, args[:3], torch)
-        # plain, kernel, kernel, plain: both sides see the same drift
-        p1, k1, k2, p2 = (cuda_ms(f, args, torch) for f in (plain, kernel, kernel, plain))
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        log(f"K1 B={SERVE_B} E={E}: max_abs_err={err} kernel_ms={ms} plain_ms={plain_ms}")
+        ms, plain_ms = timed_pair(torch, kernel, plain, args)
+        b = gather_bound(torch, sels, (M * D + 2 * M) * 2, 8, M)
+        log(f"K1 B={SERVE_B} E={E}: max_abs_err={err} kernel_ms={ms} plain_ms={plain_ms} bound={b}")
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["by_expand"][E] = ms
         if E == 1:  # the main path serves with expand=1
-            rec.update(ms=ms, plain_ms=plain_ms)
+            rec.update(ms=ms, plain_ms=plain_ms, **b)
+    del tab
+    torch.cuda.empty_cache()
+    return rec
+
+
+def k2_phase(torch, k1_ms):
+    """K2 vs its plain version at the tiled layout's shape; ``k1_ms`` maps E
+    to K1's time at the same shape in this run.  Returns the kernel record
+    (timed at E=4, the build beam's, where the path launches it most)."""
+    from granne_tpu_torch.ops import distance
+    from granne_tpu_torch.ops.kernels.nbr_score import gather_score, gather_score_reference
+    from granne_tpu_torch.ops.nbr_cache import pack_rows, tiled_height
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tab = pack_rows(distance.normalize(torch.randn((N, M, D), generator=gen, device=dev)).to(torch.bfloat16), "tiled")
+    if tab.shape != (N, tiled_height(M), 128):
+        fail(f"tiled table has shape {tuple(tab.shape)}")
+    rec = {"max_abs_err": 0.0}
+    for E in (1, 4):
+        sels = [
+            torch.randint(-2, N, (SERVE_B, E), generator=gen, device=dev, dtype=torch.int32)
+            for _ in range(TIMED_LAUNCHES)
+        ]
+        q = distance.normalize(torch.randn((SERVE_B, D), generator=gen, device=dev)).to(torch.bfloat16)
+        ref = gather_score_reference(tab, sels[0], q, M=M)
+        ker = gather_score(tab, sels[0], q, M=M)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(ker).all()):
+            fail(f"K2 gave non-finite dots at E={E}")
+        err = float((ker - ref).abs().max())
+        if err > K2_ATOL:
+            fail(f"K2 dots differ from the plain version by {err} > {K2_ATOL} at E={E}")
+        args = [(tab, s, q) for s in sels]
+        ms, plain_ms = timed_pair(
+            torch, lambda t, s, qq: gather_score(t, s, qq, M=M), lambda t, s, qq: gather_score_reference(t, s, qq, M=M),
+            args,
+        )
+        b = gather_bound(torch, sels, M * D * 2, 4, M)
+        log(f"K2 B={SERVE_B} E={E}: max_abs_err={err} kernel_ms={ms} plain_ms={plain_ms} "
+            f"k1_kernel_ms={k1_ms[E]} bound={b}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if E == 4:
+            rec.update(ms=ms, plain_ms=plain_ms, **b)
     del tab
     torch.cuda.empty_cache()
     return rec
@@ -256,14 +352,19 @@ def ivf_kernel_phase(torch):
                     "ivf_score_topk": (lambda *a: KS.ivf_score_topk(*a, k_out=K),
                                        lambda *a: KS.ivf_score_topk_reference(*a, k_out=K)),
                 }
+                # each distinct block read once (K5 also its ids and scales),
+                # the query groups and keys read once, the outputs written once
+                blocks_read = int(torch.unique(keys).numel()) * L
+                q_bytes = S * IVF_SLOT_CAP * d * 2 + S * 4
+                flops = 2.0 * S * IVF_SLOT_CAP * L * d
+                slot_bound = bound(blocks_read * d * blocks.element_size() + q_bytes + S * IVF_SLOT_CAP * L * 4, flops)
+                topk_bound = bound(blocks_read * (d * blocks.element_size() + 8) + q_bytes + S * IVF_SLOT_CAP * K * 8,
+                                   flops)
                 for kname, (kernel, plain) in pairs.items():
-                    cuda_ms(kernel, args[:3], torch)
-                    cuda_ms(plain, args[:3], torch)
-                    # plain, kernel, kernel, plain: both sides see the same drift
-                    p1, k1, k2, p2 = (cuda_ms(f, args, torch) for f in (plain, kernel, kernel, plain))
-                    times[kname] = ((k1 + k2) / 2, (p1 + p2) / 2)
+                    times[kname] = timed_pair(torch, kernel, plain, args)
                     if dtype == torch.bfloat16:  # the main path's block type
-                        recs[kname].update(ms=times[kname][0], plain_ms=times[kname][1])
+                        recs[kname].update(ms=times[kname][0], plain_ms=times[kname][1],
+                                           **(topk_bound if kname == "ivf_score_topk" else slot_bound))
             log(f"K3/K4/K5 {what} S={S}: errs k3/k4/k5 = "
                 f"{[recs[n]['max_abs_err'] for n in recs]} times (kernel_ms, plain_ms) = {times}")
             del blocks, ids, scales, keys, qg, ref, k3, k4, v, i, rv, ri
@@ -294,9 +395,9 @@ def search_all(torch, index, queries, ef):
 
 def reset_launch_counts():
     from granne_tpu_torch.ops.kernels import ivf_score as KS
-    from granne_tpu_torch.ops.kernels.nbr_score import gather_score_flat
+    from granne_tpu_torch.ops.kernels.nbr_score import gather_score, gather_score_flat
 
-    for fn in (gather_score_flat, KS.ivf_score_slots, KS.ivf_score_slots_grouped, KS.ivf_score_topk):
+    for fn in (gather_score_flat, gather_score, KS.ivf_score_slots, KS.ivf_score_slots_grouped, KS.ivf_score_topk):
         fn.launches = 0
 
 
@@ -305,22 +406,7 @@ def main_path(torch, g, vecs, queries, gt):
     from granne_tpu_torch.ops.kernels.nbr_score import gather_score_flat
 
     reset_launch_counts()  # count the main path's launches only
-
-    builder = g.GranneBuilder(
-        "angular", num_neighbors=M, max_search=BUILD_EF, wave_size=WAVE, expand=EXPAND,
-        show_progress=True, device="cuda",
-    )
-    for lo in range(0, N, 50_000):
-        builder.append(vecs[lo : lo + 50_000])
-    t = time.perf_counter()
-    builder.build()
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t
-    counts = [builder.layer_len(i) for i in range(builder.num_layers)]
-    log(f"build: n={N} d={D} M={M} ef={BUILD_EF} wave={WAVE} expand={EXPAND} "
-        f"seconds={build_s} vectors_per_s={N / build_s} layer_counts={counts}")
-    if counts[-1] != N:
-        fail(f"bottom layer holds {counts[-1]} of {N} elements")
+    builder, _ = build_index(torch, g, vecs, "main path")
 
     out_dir = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
@@ -339,25 +425,139 @@ def main_path(torch, g, vecs, queries, gt):
 
     serve = Granne(layers=loaded.layers, elements=loaded.elements.as_bf16()).with_neighbor_cache("flat")
     del built, builder
-    chosen = None
-    for ef in EFS:
-        ids, dists = search_all(torch, serve, queries, ef)
-        ids = check_result(torch, ids, dists, N, f"the HNSW search at ef={ef}")
-        recall = recall_at_k(ids, gt)
-        log(f"search ef={ef}: recall@{K}={recall}")
-        if chosen is None and recall >= TARGET_RECALL:
-            search_all(torch, serve, queries, ef)  # warm
-            t = time.perf_counter()
-            search_all(torch, serve, queries, ef)
-            qps = N_QUERIES / (time.perf_counter() - t)
-            chosen = dict(ef=ef, recall=recall, qps=qps)
-            log(f"serve bf16+flat cache: ef={ef} recall@{K}={recall} qps={qps} (batch {SERVE_B})")
-    if chosen is None:
-        fail(f"recall@{K} stayed below {TARGET_RECALL} for every ef in {EFS}")
+    recalls = serve_sweep(torch, serve, queries, gt, N, "bf16+flat cache")
     launches = gather_score_flat.launches
     if launches <= 0:
         fail("the main path never launched gather_score_flat")
     log(f"gather_score_flat launches in the main path: {launches}")
+    return launches, recalls
+
+
+def serve_sweep(torch, index, queries, gt, n, what):
+    """Recall@K at every ef in EFS, and the QPS at the first ef that reaches
+    TARGET_RECALL (else fail).  Returns {ef: recall}."""
+    recalls, chosen = {}, None
+    for ef in EFS:
+        ids, dists = search_all(torch, index, queries, ef)
+        recalls[ef] = recall_at_k(check_result(torch, ids, dists, n, f"the {what} search at ef={ef}"), gt)
+        log(f"{what} search ef={ef}: recall@{K}={recalls[ef]}")
+        if chosen is None and recalls[ef] >= TARGET_RECALL:
+            _, qps = timed_search(torch, lambda: search_all(torch, index, queries, ef))
+            chosen = ef
+            log(f"serve {what}: ef={ef} recall@{K}={recalls[ef]} qps={qps} (batch {SERVE_B})")
+    if chosen is None:
+        fail(f"{what}: recall@{K} stayed below {TARGET_RECALL} for every ef in {EFS}")
+    return recalls
+
+
+def build_index(torch, g, vecs, what, **cfg):
+    """GranneBuilder over ``vecs`` in 50,000-row appends -> build; returns
+    (builder, build seconds)."""
+    builder = g.GranneBuilder(
+        "angular", num_neighbors=M, max_search=BUILD_EF, wave_size=WAVE, expand=EXPAND,
+        show_progress=True, device="cuda", **cfg,
+    )
+    for lo in range(0, len(vecs), 50_000):
+        builder.append(vecs[lo : lo + 50_000])
+    t = time.perf_counter()
+    builder.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    counts = [builder.layer_len(i) for i in range(builder.num_layers)]
+    log(f"{what} build: n={len(vecs)} d={D} M={M} ef={BUILD_EF} wave={WAVE} expand={EXPAND} {cfg} "
+        f"seconds={build_s} vectors_per_s={len(vecs) / build_s} layer_counts={counts}")
+    if counts[-1] != len(vecs):
+        fail(f"{what}: the bottom layer holds {counts[-1]} of {len(vecs)} elements")
+    return builder, build_s
+
+
+def tiled_cache_path(torch, g, vecs, queries, gt, main_recalls):
+    """The cache-fed tiled build and its serving, then f32-table and
+    reranked serving on the same graph.  Returns K2's launches in the
+    build and tiled serving."""
+    from granne_tpu_torch.index.granne import Granne
+    from granne_tpu_torch.ops import frontier
+    from granne_tpu_torch.ops.kernels.nbr_score import gather_score
+    from granne_tpu_torch.ops.nbr_cache import make_neighbor_cache
+
+    reset_launch_counts()  # count this path's launches only
+    builder, _ = build_index(torch, g, vecs, "tiled cache-fed", neighbor_cache=True, neighbor_cache_layout="tiled")
+    build_launches = gather_score.launches
+    if build_launches <= 0:
+        fail("the tiled cache-fed build never launched gather_score")
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    ipath, epath = os.path.join(out_dir, "index_tiled.gtz"), os.path.join(out_dir, "elements_tiled.gt")
+    builder.save_index(ipath, compressed=True)
+    builder.save_elements(epath)
+    del builder
+    loaded = g.load_granne(ipath, epath, device="cuda")
+    serve = Granne(layers=loaded.layers, elements=loaded.elements.as_bf16()).with_neighbor_cache("tiled")
+    recalls = serve_sweep(torch, serve, queries, gt, N, "bf16+tiled cache")
+    ef = next(e for e in EFS if recalls[e] >= TARGET_RECALL)
+    if recalls[ef] < main_recalls[ef] - RECALL_SLACK:
+        fail(f"the tiled cache-fed build's recall {recalls[ef]} at ef={ef} is more than {RECALL_SLACK} "
+             f"below the main path's {main_recalls[ef]}")
+    launches = gather_score.launches
+    log(f"gather_score launches: {build_launches} in the build, {launches} with tiled serving")
+    del serve
+
+    ef = EFS[0]
+    f32 = Granne(layers=loaded.layers, elements=loaded.elements)
+    f32_tab = Granne(layers=loaded.layers, elements=loaded.elements, nbr_vecs=make_neighbor_cache(
+        loaded.layers.layers[-1], loaded.elements, rows=N, cache_dtype="f32"))
+    (p_ids, p_d), qps_plain = timed_search(torch, lambda: search_all(torch, f32, queries, ef))
+    (c_ids, c_d), qps_tab = timed_search(torch, lambda: search_all(torch, f32_tab, queries, ef))
+    p_ids = check_result(torch, p_ids, p_d, N, "the uncached f32 search")
+    c_ids = check_result(torch, c_ids, c_d, N, "the f32-table search")
+    agree = overlap(c_ids, p_ids)
+    log(f"serve f32 + f32 flat table: ef={ef} recall@{K}={recall_at_k(c_ids, gt)} qps={qps_tab} "
+        f"overlap_with_uncached={agree}; uncached f32: recall@{K}={recall_at_k(p_ids, gt)} qps={qps_plain}")
+    if agree < F32_OVERLAP:
+        fail(f"f32-table serving overlaps the uncached f32 search {agree} < {F32_OVERLAP}")
+    del f32_tab
+
+    bf16 = Granne(layers=loaded.layers, elements=loaded.elements.as_bf16()).with_neighbor_cache("flat")
+    unit_q = loaded.elements.prepare_queries(queries)
+
+    def reranked():
+        out = [
+            frontier.search_layers(
+                bf16.layers.layers, bf16.elements, bf16.elements.prepare_queries(queries[lo : lo + SERVE_B]),
+                ef=ef, num_neighbors=K, nbr_vecs=bf16.nbr_vecs, rerank=True, rerank_with=loaded.elements,
+                rerank_queries=unit_q[lo : lo + SERVE_B],
+            )
+            for lo in range(0, len(queries), SERVE_B)
+        ]
+        return torch.cat([i for i, _ in out]), torch.cat([d for _, d in out])
+
+    (n_ids, n_d), qps_plain = timed_search(torch, lambda: search_all(torch, bf16, queries, ef))
+    (r_ids, r_d), qps_rr = timed_search(torch, reranked)
+    r_plain = recall_at_k(check_result(torch, n_ids, n_d, N, "the bf16 flat-cache search"), gt)
+    r_rr = recall_at_k(check_result(torch, r_ids, r_d, N, "the reranked bf16 flat-cache search"), gt)
+    log(f"serve bf16+flat cache, rerank against f32: ef={ef} recall@{K}={r_rr} qps={qps_rr}; "
+        f"without rerank recall@{K}={r_plain} qps={qps_plain}")
+    if r_rr < r_plain:
+        fail(f"rerank against the f32 container lowered recall@{K}: {r_rr} < {r_plain}")
+    return launches
+
+
+def flat_cache_path(torch, g, vecs, queries):
+    """The flat cache-fed build (K1 in the build beam) at FLAT_BUILD_N and
+    its bf16 flat-cache serving.  Returns K1's launches in the build."""
+    from granne_tpu_torch.index.granne import Granne
+    from granne_tpu_torch.ops.kernels.nbr_score import gather_score_flat
+
+    sub = vecs[:FLAT_BUILD_N]
+    gt = exact_topk(torch, sub, queries)
+    reset_launch_counts()
+    builder, _ = build_index(torch, g, sub, "flat cache-fed", neighbor_cache=True, neighbor_cache_layout="flat")
+    launches = gather_score_flat.launches
+    if launches <= 0:
+        fail("the flat cache-fed build never launched gather_score_flat")
+    log(f"gather_score_flat launches in the flat cache-fed build: {launches}")
+    idx = builder.get_index()
+    serve = Granne(layers=idx.layers, elements=idx.elements.as_bf16()).with_neighbor_cache("flat")
+    serve_sweep(torch, serve, queries, gt, FLAT_BUILD_N, f"flat cache-fed build n={FLAT_BUILD_N}, bf16+flat cache")
     return launches
 
 
@@ -489,36 +689,36 @@ def main() -> None:
 
     rec = k1_phase(torch)
     no_jax("K1 phase")
+    k2_rec = k2_phase(torch, rec["by_expand"])
+    no_jax("K2 phase")
     ivf_recs = ivf_kernel_phase(torch)
     no_jax("K3/K4/K5 phase")
     vecs, queries = bench_data()
     gt = exact_topk(torch, vecs, queries)
-    launches = main_path(torch, g, vecs, queries, gt)
+    launches, main_recalls = main_path(torch, g, vecs, queries, gt)
     no_jax("HNSW path")
+    k2_launches = tiled_cache_path(torch, g, vecs, queries, gt, main_recalls)
+    no_jax("tiled cache-fed path")
+    flat_cache_path(torch, g, vecs, queries)
+    no_jax("flat cache-fed path")
     ivf_launches = ivf_path(torch, g, vecs, queries, gt)
     no_jax("IVF path")
 
-    kernels = [{
-        "name": "gather_score_flat",
-        "route": "cuda",
-        "source": "granne_tpu_torch/csrc/nbr_score.cu",
-        "replaces": "granne_tpu/ops/pallas/nbr_score.py:342",
-        "launches": launches,
-        "max_abs_err": rec["max_abs_err"],
-        "ms": rec["ms"],
-        "plain_ms": rec["plain_ms"],
-    }]
+    def record(name, source, replaces, n_launches, r):
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n_launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+        }
+
+    nbr_src = "granne_tpu_torch/csrc/nbr_score.cu"
+    kernels = [
+        record("gather_score_flat", nbr_src, "granne_tpu/ops/pallas/nbr_score.py:342", launches, rec),
+        record("gather_score", nbr_src, "granne_tpu/ops/pallas/nbr_score.py:130", k2_launches, k2_rec),
+    ]
     for name, line in (("ivf_score_slots", 59), ("ivf_score_slots_grouped", 136), ("ivf_score_topk", 227)):
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "granne_tpu_torch/csrc/ivf_score.cu",
-            "replaces": f"granne_tpu/ops/pallas/ivf_score.py:{line}",
-            "launches": ivf_launches[name],
-            "max_abs_err": ivf_recs[name]["max_abs_err"],
-            "ms": ivf_recs[name]["ms"],
-            "plain_ms": ivf_recs[name]["plain_ms"],
-        })
+        kernels.append(record(name, "granne_tpu_torch/csrc/ivf_score.cu", f"granne_tpu/ops/pallas/ivf_score.py:{line}",
+                              ivf_launches[name], ivf_recs[name]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -43,6 +43,13 @@ def _tensor(arr, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=device)
 
 
+def neighbor_cache_from_numpy(tab, device="cuda") -> torch.Tensor:
+    """A JAX neighbor-cache table (as numpy) -> the port's: int16 flat bf16
+    rows and int32 flat f32 rows keep their integer type, a bf16 tiled
+    table becomes ``torch.bfloat16``."""
+    return _tensor(tab, device)
+
+
 def ivf_from_numpy(centroids, blocks, block_ids, block_scales, n_total, device="cuda") -> IvfIndex:
     """A JAX ``IvfIndex``'s arrays (as numpy) -> the port's ``IvfIndex``."""
     return IvfIndex(

@@ -77,11 +77,23 @@ class AngularVectors(NeighborCacheScoring):
     def cache_rows(self, ids: torch.Tensor) -> torch.Tensor:
         return self.get(ids).to(torch.bfloat16)
 
+    def cache_rows_exact(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.get(ids).to(torch.float32)
+
     def score_block(self, block: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
         return D.angular_dist_gathered(block, queries.to(block.dtype))
 
     def dist_from_dots(self, dots: torch.Tensor) -> torch.Tensor:
         return torch.clamp_min(1.0 - dots.to(torch.float32), 0.0)
+
+    def pairwise_from_vecs(self, vecs: torch.Tensor) -> torch.Tensor:
+        return D.angular_pairwise_gathered(vecs)
+
+    def rerank_dists(self, ids: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+        """Exact on the f32 container; on the bf16 copy the same bf16 rows
+        with f32 accumulation (pass the f32 container as ``rerank_with``
+        for a precision gain)."""
+        return D.angular_dist_gathered(self.get(ids).to(torch.float32), queries.to(torch.float32))
 
     def self_dist(self, ids: torch.Tensor) -> torch.Tensor:
         v = self.get(ids).to(torch.float32)

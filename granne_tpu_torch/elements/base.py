@@ -58,11 +58,16 @@ class ElementContainer(Protocol):
 
 class NeighborCacheScoring(abc.ABC):
     """Capability: the container can fill and score a neighbor-vector cache
-    (``ops.nbr_cache``, ``ops.kernels.nbr_score``)."""
+    (``ops.nbr_cache``, ``ops.kernels.nbr_score``), feed the build's
+    cache-fed merges, and re-score a final beam exactly."""
 
     @abc.abstractmethod
     def cache_rows(self, ids: torch.Tensor) -> torch.Tensor:
         """bf16 vector rows [..., d] for the cache table."""
+
+    @abc.abstractmethod
+    def cache_rows_exact(self, ids: torch.Tensor) -> torch.Tensor:
+        """f32 vector rows [..., d] for a ``cache_dtype="f32"`` table."""
 
     @abc.abstractmethod
     def score_block(self, block: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
@@ -71,6 +76,14 @@ class NeighborCacheScoring(abc.ABC):
     @abc.abstractmethod
     def dist_from_dots(self, dots: torch.Tensor) -> torch.Tensor:
         """Distance from raw query . neighbor dot products (f32)."""
+
+    @abc.abstractmethod
+    def pairwise_from_vecs(self, vecs: torch.Tensor) -> torch.Tensor:
+        """Pairwise distances of pre-gathered rows [B, C, d] -> f32[B, C, C]."""
+
+    @abc.abstractmethod
+    def rerank_dists(self, ids: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+        """f32 re-scoring of a final beam: ids [B, K] x queries [B, d] -> f32[B, K]."""
 
 
 def supports_cache(elements) -> bool:

@@ -14,9 +14,17 @@ geometric layer schedule, M/2 on upper layers, geometric warm-up waves,
 the reverse-order reinsert pass at max_search/2, the final prune, and the
 zero/duplicate skip rules.
 
-The build updates the layer under construction in place, but never a
-tensor it was handed: ``build_layers`` copies a resumed layer before it
-writes to it, so a ``Granne`` snapshot taken earlier stays as it was.
+With ``BuildConfig.neighbor_cache`` the layer under construction carries a
+neighbor cache (``ops.nbr_cache``, flat or tiled): the wave beam scores
+through it (K1 or K2), and the merges read existing rows' vectors from it
+and write the kept vectors back, so the cache stays coherent with the
+adjacency on every valid id slot (pad slots hold arbitrary vectors; their
+ids are -1).
+
+The build updates the layer under construction and its cache in place, but
+never a tensor it was handed: ``build_layers`` copies a resumed layer
+before it writes to it, so a ``Granne`` snapshot taken earlier stays as it
+was.
 """
 
 from __future__ import annotations
@@ -27,7 +35,9 @@ from typing import Optional
 
 import torch
 
+from ..elements.base import supports_cache
 from ..ops import distance, frontier
+from ..ops.nbr_cache import make_neighbor_cache, pack_rows, rows_to_vecs
 from ..ops.topk import INF, UNUSED, sort_by_key
 from . import schedule
 from .graph import LayerStack, empty_layer, grow_layer
@@ -44,9 +54,12 @@ MAX_ELEMENTS = 2**31 - 2
 class BuildConfig:
     """Build parameters (the reference's ``BuildConfig`` plus wave knobs).
 
-    ``neighbor_cache``, ``neighbor_cache_layout="tiled"`` and
-    ``gather_budget`` are not ported yet (ROADMAP.md, Queue 1 item 8) and
-    raise ``NotImplementedError``.
+    ``neighbor_cache`` keeps a neighbor cache of the layer under
+    construction in ``neighbor_cache_layout`` ("flat": K1, "tiled": K2,
+    d <= 128) for the wave beam and the merges.  ``gather_budget`` caps the
+    candidates the uncached build beam scores per iteration
+    (``ops.frontier.beam_search``); graph quality must be checked per
+    configuration.
     """
 
     layer_multiplier: float = 15.0
@@ -64,17 +77,18 @@ class BuildConfig:
     neighbor_cache_layout: str = "flat"
     gather_budget: int | None = None
 
-    def __post_init__(self):
-        for name, on in (
-            ("neighbor_cache=True", self.neighbor_cache),
-            ("neighbor_cache_layout='tiled'", self.neighbor_cache_layout == "tiled"),
-            ("gather_budget", self.gather_budget is not None),
-        ):
-            if on:
-                raise NotImplementedError(
-                    f"BuildConfig({name}) is not ported to granne_tpu_torch yet "
-                    "(ROADMAP.md, Queue 1 item 8)"
-                )
+
+def _layout(nbr_tab) -> str:
+    return "tiled" if nbr_tab.ndim == 3 else "flat"
+
+
+def _write_rows(tab, rows, new, keep=None):
+    """``tab[rows] = new`` in place; with ``keep`` (bool[N]) only where it
+    is set, the other rows keep their old contents."""
+    if keep is not None:
+        mask = keep.reshape(-1, *([1] * (new.ndim - 1)))
+        new = torch.where(mask, new, tab.index_select(0, rows))
+    tab.index_copy_(0, rows, new)
 
 
 # ---------------------------------------------------------------------------
@@ -83,17 +97,27 @@ class BuildConfig:
 # ---------------------------------------------------------------------------
 
 
-def _merge_rows(elements, node_ids, exist, inc_ids, inc_d, node_valid, limit):
+def _merge_rows(elements, node_ids, exist, inc_ids, inc_d, node_valid, limit,
+                exist_vecs=None, inc_vecs=None, return_vecs=False):
     """Merge incoming neighbor candidates into existing rows.
 
     node_ids: int32[N]; exist: int32[N, Ms]; inc_ids/inc_d: [N, R];
     node_valid: bool[N]; limit: max row occupancy after the merge.
-    Returns int32[N, Ms] new rows (distance-sorted, -1 padded).
+    ``exist_vecs``/``inc_vecs`` ([N, Ms, d] / [N, R, d], both or neither)
+    are the candidates' pre-gathered vectors (the cache-fed merge): the
+    existing-row distances and the heuristic's pairwise matrix then come
+    from them.  Returns int32[N, Ms] new rows (distance-sorted, -1 padded);
+    with ``return_vecs`` also the kept vectors [N, Ms, d] (pad slots
+    arbitrary), which refresh the cache without a gather.
     """
     Ms = exist.shape[1]
     tq = elements.queries_from_ids(node_ids)
     exist_valid = (exist >= 0) & node_valid[:, None]
-    exist_d = torch.where(exist_valid, elements.dist_ids_to_queries(exist, tq), INF)
+    if exist_vecs is not None:
+        exist_d = elements.score_block(exist_vecs, tq)
+    else:
+        exist_d = elements.dist_ids_to_queries(exist, tq)
+    exist_d = torch.where(exist_valid, exist_d, INF)
 
     # drop incoming that duplicate an existing neighbor or the node itself
     dup = torch.any((inc_ids[:, :, None] == exist[:, None, :]) & exist_valid[:, None, :], dim=2)
@@ -102,27 +126,74 @@ def _merge_rows(elements, node_ids, exist, inc_ids, inc_d, node_valid, limit):
 
     all_ids = torch.cat([torch.where(exist_valid, exist, UNUSED), torch.where(inc_valid, inc_ids, UNUSED)], dim=1)
     all_d = torch.cat([exist_d, inc_d], dim=1)
-    sd, sids = sort_by_key(all_d, all_ids)
-    sel_ids, _ = select_neighbors(elements, sids, sd, sids >= 0, limit)
+    sel_vecs = None
+    if exist_vecs is None:
+        if return_vecs:
+            raise ValueError("return_vecs needs the cache-fed merge")
+        sd, sids = sort_by_key(all_d, all_ids)
+        sel_ids, _ = select_neighbors(elements, sids, sd, sids >= 0, limit)
+    else:
+        perm = torch.arange(all_ids.shape[1], device=all_ids.device).expand_as(all_ids)
+        sd, sids, sperm = sort_by_key(all_d, all_ids, perm)
+        all_vecs = torch.cat([exist_vecs, inc_vecs], dim=1)
+        svecs = torch.gather(all_vecs, 1, sperm[:, :, None].expand(-1, -1, all_vecs.shape[2]))
+        out = select_neighbors(elements, sids, sd, sids >= 0, limit, cand_vecs=svecs, return_vecs=return_vecs)
+        sel_ids = out[0]
+        if return_vecs:
+            sel_vecs = out[2]
     if limit < Ms:
         pad = torch.full((sel_ids.shape[0], Ms - limit), UNUSED, dtype=torch.int32, device=sel_ids.device)
         sel_ids = torch.cat([sel_ids, pad], dim=1)
+        if sel_vecs is not None:
+            vpad = sel_vecs.new_zeros((sel_vecs.shape[0], Ms - limit, sel_vecs.shape[2]))
+            sel_vecs = torch.cat([sel_vecs, vpad], dim=1)
+    if return_vecs:
+        return sel_ids, sel_vecs
     return sel_ids
 
 
-def _merge_rows_chunked(elements, node_ids, exist, inc_ids, inc_d, node_valid, limit, chunk):
+def _merge_rows_chunked(elements, node_ids, exist, inc_ids, inc_d, node_valid, limit, chunk,
+                        nbr_tab=None, inc_pos=None, wave_rows=None, return_vecs=False):
     """``_merge_rows`` over row chunks of ``chunk`` rows, which bounds the
-    [chunk, C, C] pairwise working set.  Rows are independent."""
-    out = [
-        _merge_rows(
-            elements, node_ids[lo : lo + chunk], exist[lo : lo + chunk],
-            inc_ids[lo : lo + chunk], inc_d[lo : lo + chunk], node_valid[lo : lo + chunk], limit,
+    [chunk, C, C] pairwise working set.  Rows are independent.
+
+    ``nbr_tab`` makes the merge cache-fed: every caller passes
+    ``exist == adj[node_ids]``, which is what the cache rows of
+    ``node_ids`` hold, so existing vectors come from one row read per node.
+    Incoming vectors are picked from the [W, d] wave block ``wave_rows``
+    by their wave position ``inc_pos`` when given (an ``index_select``: the
+    same bits as the JAX package's one-hot matmul), else gathered from the
+    elements.  With ``return_vecs`` returns (rows, kept vectors).
+    """
+    cached = nbr_tab is not None
+    Ms = exist.shape[1]
+    rows, vecs = [], []
+    for lo in range(0, node_ids.shape[0], chunk):
+        nid, ii = node_ids[lo : lo + chunk], inc_ids[lo : lo + chunk]
+        ev = iv = None
+        if cached:
+            ev = rows_to_vecs(nbr_tab, nid, Ms, elements.dim)
+            if inc_pos is not None:
+                ip = inc_pos[lo : lo + chunk]
+                iv = wave_rows.index_select(0, ip.reshape(-1).long()).reshape(*ip.shape, -1)
+            else:
+                iv = elements.cache_rows(ii)
+        out = _merge_rows(
+            elements, nid, exist[lo : lo + chunk], ii, inc_d[lo : lo + chunk],
+            node_valid[lo : lo + chunk], limit, ev, iv, return_vecs=return_vecs and cached,
         )
-        for lo in range(0, node_ids.shape[0], chunk)
-    ]
-    if not out:
-        return exist.new_full((0, exist.shape[1]), UNUSED)
-    return torch.cat(out, dim=0)
+        if return_vecs and cached:
+            rows.append(out[0])
+            vecs.append(out[1])
+        else:
+            rows.append(out)
+    if not rows:
+        rows.append(exist.new_full((0, Ms), UNUSED))
+        if return_vecs and cached:
+            vecs.append(elements.cache_rows(exist[:0]))
+    if return_vecs and cached:
+        return torch.cat(rows), torch.cat(vecs)
+    return torch.cat(rows)
 
 
 # ---------------------------------------------------------------------------
@@ -130,14 +201,16 @@ def _merge_rows_chunked(elements, node_ids, exist, inc_ids, inc_d, node_valid, l
 # ---------------------------------------------------------------------------
 
 
-def _apply_reverse_edges(adj, elements, tgt, src, d, *, reverse_cap, merge_chunk):
+def _apply_reverse_edges(adj, elements, tgt, src, d, *, reverse_cap, merge_chunk,
+                         nbr_tab=None, src_pos=None, wave_rows=None):
     """Deterministically apply reverse edges (``src -> tgt`` joins tgt's row),
-    updating ``adj`` in place.
+    updating ``adj`` (and the cache rows it rewrites) in place.
 
     tgt/src: int32[T]; d: f32[T]; invalid edges have tgt == -1.  Per target
     the ``reverse_cap`` nearest incoming edges are merged with the existing
     row; overflow beyond the row width is re-pruned with the heuristic (the
-    final per-layer prune later re-limits to M_eff).
+    final per-layer prune later re-limits to M_eff).  With a cache,
+    ``src_pos`` (int32[T]) is each edge's wave position in ``wave_rows``.
     """
     T = tgt.shape[0]
     R = reverse_cap
@@ -163,17 +236,27 @@ def _apply_reverse_edges(adj, elements, tgt, src, d, *, reverse_cap, merge_chunk
     inc_d = torch.full(((T + 1) * R,), INF, dtype=torch.float32, device=dev)
     inc_ids = inc_ids.scatter(0, cell, ss).view(T + 1, R)
     inc_d = inc_d.scatter(0, cell, sd).view(T + 1, R)
+    inc_pos = None
+    if nbr_tab is not None:
+        inc_pos = torch.zeros(((T + 1) * R,), dtype=torch.int32, device=dev)
+        inc_pos = inc_pos.scatter(0, cell, src_pos[order]).view(T + 1, R)
 
     n_targets = int(first.sum())  # one sync; rows past it hold no target
     utgt = torch.full((T + 1,), UNUSED, dtype=torch.int32, device=dev)
     utgt = utgt.scatter(0, torch.where(first, uidx, T), st)[:n_targets]
-    exist = adj.index_select(0, utgt.long())
-    new_rows = _merge_rows_chunked(
-        elements, utgt, exist, inc_ids[:n_targets], inc_d[:n_targets],
+    rows = utgt.long()
+    res = _merge_rows_chunked(
+        elements, utgt, adj.index_select(0, rows), inc_ids[:n_targets], inc_d[:n_targets],
         torch.ones(n_targets, dtype=torch.bool, device=dev), adj.shape[1], merge_chunk,
+        nbr_tab=nbr_tab, inc_pos=None if inc_pos is None else inc_pos[:n_targets],
+        wave_rows=wave_rows, return_vecs=nbr_tab is not None,
     )
-    adj.index_copy_(0, utgt.long(), new_rows)
-    return adj
+    if nbr_tab is None:
+        adj.index_copy_(0, rows, res)
+        return
+    new_rows, new_vecs = res
+    adj.index_copy_(0, rows, new_rows)
+    nbr_tab.index_copy_(0, rows, pack_rows(new_vecs, _layout(nbr_tab), ids=new_rows))
 
 
 # ---------------------------------------------------------------------------
@@ -192,10 +275,13 @@ def search_select_phase(
     max_search: int,
     expand: int,
     max_iters: int | None = None,
+    gather_budget: int | None = None,
+    nbr_vecs=None,
 ):
     """Phase A of a wave: frozen-graph search + heuristic for each wave
     element (the search/select half of the reference's ``index_element``).
-    Returns (sel_ids, sel_d, active, zero_sel)."""
+    ``nbr_vecs`` is the cache of ``adj``.  Returns (sel_ids, sel_d, active,
+    zero_sel)."""
     W = wave_ids.shape[0]
     q = elements.queries_from_ids(wave_ids)
 
@@ -204,7 +290,8 @@ def search_select_phase(
     ep = frontier.descend(prev_layers, elements, q, ep)
 
     cand_ids, cand_d = frontier.beam_search(
-        adj, elements, q, ep, ef=max_search, expand=expand, max_iters=max_iters
+        adj, elements, q, ep, ef=max_search, expand=expand, max_iters=max_iters,
+        gather_budget=gather_budget, nbr_vecs=nbr_vecs,
     )
 
     # drop self hits
@@ -237,13 +324,21 @@ def apply_wave_edges(
     reinsert: bool,
     reverse_cap: int,
     merge_chunk: int,
+    nbr_tab=None,
 ):
     """Phase B of a wave: the deterministic graph mutation (the linking half
     of ``index_element``).  ``wave_ids`` must be distinct.  Updates ``adj``
-    in place and returns it."""
+    and its cache ``nbr_tab`` in place and returns ``(adj, nbr_tab)``.
+
+    The cache rows are written by the merges from the vectors they already
+    hold; the forward write comes before the reverse merge reads the cache,
+    so same-wave reverse targets read post-forward rows.  Inactive wave
+    rows keep their old adjacency and cache rows."""
     W = wave_ids.shape[0]
     Ms = adj.shape[1]
     rows = wave_ids.long()
+    cached = nbr_tab is not None
+    wave_rows = elements.cache_rows(wave_ids) if cached else None  # [W, d]
 
     # duplicate dead-node rule: a node whose (M/2)-th selected neighbor is a
     # ~zero-distance duplicate stays unconnected.  Duplicates in this wave are
@@ -258,25 +353,37 @@ def apply_wave_edges(
     sel_ids = torch.where(active[:, None], sel_ids, UNUSED)
     sel_d = torch.where(active[:, None], sel_d, INF)
 
-    # forward edges; inactive rows are written back unchanged
+    # forward edges
     exist = adj.index_select(0, rows)
+    fvecs = None
     if reinsert:
         # the node is already in the graph: merge the selection into its row
-        fwd = _merge_rows_chunked(
-            elements, wave_ids, exist, sel_ids, sel_d, active, Ms, merge_chunk
+        res = _merge_rows_chunked(
+            elements, wave_ids, exist, sel_ids, sel_d, active, Ms, merge_chunk,
+            nbr_tab=nbr_tab, return_vecs=cached,
         )
+        fwd, fvecs = res if cached else (res, None)
     elif Ms > m_eff:
         fwd = torch.cat([sel_ids, exist.new_full((W, Ms - m_eff), UNUSED)], dim=1)
     else:
         fwd = sel_ids
-    adj.index_copy_(0, rows, torch.where(active[:, None], fwd, exist))
+    _write_rows(adj, rows, fwd, active)
+    if cached:
+        if fvecs is None:  # fresh rows: their vectors from the elements
+            fvecs = elements.cache_rows(fwd.clamp_min(0))
+        _write_rows(nbr_tab, rows, pack_rows(fvecs, _layout(nbr_tab), ids=fwd), active)
 
     # reverse edges
     tgt = torch.where(active[:, None], sel_ids, UNUSED).reshape(-1)
     src = wave_ids[:, None].expand(W, m_eff).reshape(-1)
-    return _apply_reverse_edges(
-        adj, elements, tgt, src, sel_d.reshape(-1), reverse_cap=reverse_cap, merge_chunk=merge_chunk
+    src_pos = None
+    if cached:  # each edge's source vector sits in wave_rows at its wave position
+        src_pos = torch.arange(W, dtype=torch.int32, device=adj.device)[:, None].expand(W, m_eff).reshape(-1)
+    _apply_reverse_edges(
+        adj, elements, tgt, src, sel_d.reshape(-1), reverse_cap=reverse_cap, merge_chunk=merge_chunk,
+        nbr_tab=nbr_tab, src_pos=src_pos, wave_rows=wave_rows,
     )
+    return adj, nbr_tab
 
 
 # ---------------------------------------------------------------------------
@@ -284,22 +391,32 @@ def apply_wave_edges(
 # ---------------------------------------------------------------------------
 
 
-def prune_layer(adj, elements, *, m_eff: int, merge_chunk: int):
+def prune_layer(adj, elements, *, m_eff: int, merge_chunk: int, nbr_tab=None, rebuild_cache: bool = True):
     """Re-limit every row to ``m_eff`` via the heuristic, in place, chunk by
-    chunk (rows are independent).  Returns ``adj``."""
+    chunk (rows are independent).  With ``nbr_tab`` the merges are fed from
+    the cache; every row can change, so the cache is then rebuilt from the
+    pruned adjacency (``rebuild_cache``) or dropped.  Returns
+    ``(adj, nbr_tab)``."""
     N = adj.shape[0]
+    Ms = adj.shape[1]
     for lo in range(0, N, merge_chunk):
         sl = adj[lo : lo + merge_chunk]
         n = sl.shape[0]
         node_ids = torch.arange(lo, lo + n, dtype=torch.int32, device=adj.device)
         node_valid = torch.any(sl >= 0, dim=1)
+        no_inc = sl.new_full((n, 1), UNUSED)
+        ev = iv = None
+        if nbr_tab is not None:
+            ev = rows_to_vecs(nbr_tab, node_ids, Ms, elements.dim)
+            iv = elements.cache_rows(no_inc)
         new_rows = _merge_rows(
-            elements, node_ids, sl,
-            sl.new_full((n, 1), UNUSED), torch.full((n, 1), INF, device=adj.device),
-            node_valid, m_eff,
+            elements, node_ids, sl, no_inc, torch.full((n, 1), INF, device=adj.device),
+            node_valid, m_eff, ev, iv,
         )
         adj[lo : lo + n] = torch.where(node_valid[:, None], new_rows, sl)
-    return adj
+    if nbr_tab is None or not rebuild_cache:
+        return adj, None
+    return adj, make_neighbor_cache(adj, elements, rows=nbr_tab.shape[0], layout=_layout(nbr_tab))
 
 
 # ---------------------------------------------------------------------------
@@ -318,9 +435,11 @@ def _wave_ranges(start: int, end: int, wave_size: int):
         cur += size
 
 
-def _run_waves(prev_layers, adj, elements, start, end, cfg: BuildConfig, m_eff, max_search, reinsert):
+def _run_waves(prev_layers, adj, elements, start, end, cfg: BuildConfig, m_eff, max_search, reinsert,
+               nbr_tab=None):
     """Insert (or, with ``reinsert``, re-insert back to front) the elements
-    [start, end) wave by wave.  Returns ``adj``, updated in place."""
+    [start, end) wave by wave.  ``adj`` and its cache ``nbr_tab`` are
+    updated in place."""
     kw = dict(m_eff=m_eff, reverse_cap=cfg.reverse_cap, merge_chunk=cfg.merge_chunk)
 
     def wave(lo, hi):
@@ -328,9 +447,12 @@ def _run_waves(prev_layers, adj, elements, start, end, cfg: BuildConfig, m_eff, 
         valid = torch.ones((hi - lo,), dtype=torch.bool, device=adj.device)
         sel_ids, sel_d, active, zero_sel = search_select_phase(
             prev_layers, adj, elements, ids, valid, m_eff=m_eff, max_search=max_search,
-            expand=cfg.expand, max_iters=cfg.build_max_iters,
+            expand=cfg.expand, max_iters=cfg.build_max_iters, gather_budget=cfg.gather_budget,
+            nbr_vecs=nbr_tab,
         )
-        apply_wave_edges(adj, elements, ids, valid, sel_ids, sel_d, active, zero_sel, reinsert=reinsert, **kw)
+        apply_wave_edges(
+            adj, elements, ids, valid, sel_ids, sel_d, active, zero_sel, reinsert=reinsert, nbr_tab=nbr_tab, **kw
+        )
 
     if reinsert:
         hi = end
@@ -341,7 +463,6 @@ def _run_waves(prev_layers, adj, elements, start, end, cfg: BuildConfig, m_eff, 
     else:
         for lo, hi in _wave_ranges(start, end, cfg.wave_size):
             wave(lo, hi)
-    return adj
 
 
 def _index_layer(layers: list, counts: list, elements, cfg: BuildConfig, num_elements: int):
@@ -364,11 +485,21 @@ def _index_layer(layers: list, counts: list, elements, cfg: BuildConfig, num_ele
         print(f"[granne-tpu-torch] building layer {layer_idx}: {counts[-1]} -> {target} "
               f"(M_eff={m_eff})", file=sys.stderr)
 
-    _run_waves(prev, adj, elements, counts[-1], target, cfg, m_eff, cfg.max_search, False)
-    prune_layer(adj, elements, m_eff=m_eff, merge_chunk=cfg.merge_chunk)
+    # the cache of the layer under construction, a build accelerator only
+    nbr_tab = None
+    if cfg.neighbor_cache and supports_cache(elements):
+        nbr_tab = make_neighbor_cache(adj, elements, rows=target, layout=cfg.neighbor_cache_layout)
+
+    _run_waves(prev, adj, elements, counts[-1], target, cfg, m_eff, cfg.max_search, False, nbr_tab)
+    _, nbr_tab = prune_layer(
+        adj, elements, m_eff=m_eff, merge_chunk=cfg.merge_chunk, nbr_tab=nbr_tab,
+        rebuild_cache=cfg.reinsert_elements,
+    )
     if cfg.reinsert_elements:
         half = max(1, cfg.max_search // 2)
-        _run_waves(prev, adj, elements, 0, target, cfg, m_eff, half, True)
+        _run_waves(prev, adj, elements, 0, target, cfg, m_eff, half, True, nbr_tab)
+        # the last prune scores from the elements, not the cache: the JAX
+        # package measured the cache's bf16 vectors degrading it
         prune_layer(adj, elements, m_eff=m_eff, merge_chunk=cfg.merge_chunk)
 
     layers[-1] = adj
@@ -424,4 +555,3 @@ def build_layers(
         _index_layer(layers, counts, elements, cfg, num_elements)
 
     return LayerStack(layers=tuple(layers), counts=tuple(counts))
-

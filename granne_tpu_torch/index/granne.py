@@ -18,9 +18,13 @@ from .graph import LayerStack
 class Granne:
     """An immutable searchable index: layer stack + element container.
 
-    ``nbr_vecs`` (see ``with_neighbor_cache``) is a flat bf16 cache of the
-    bottom layer: search then reads one row per expanded node through the
-    K1 kernel.  It costs ``n * pad128(M*d + 2M) * 2`` bytes of device memory.
+    ``nbr_vecs`` (see ``with_neighbor_cache``) is a neighbor cache of the
+    bottom layer (``ops.nbr_cache``): search then reads one row per
+    expanded node.  A flat bf16 table goes through the K1 kernel and costs
+    ``n * pad128(M*d + 2M) * 2`` bytes of device memory; a tiled one goes
+    through K2 and costs ``n * pad8(M) * 256`` bytes; a flat f32 table
+    (``make_neighbor_cache(cache_dtype="f32")``) scores exactly in plain
+    PyTorch at ``n * pad128(M*d + M) * 4`` bytes.
     """
 
     layers: LayerStack
@@ -28,7 +32,8 @@ class Granne:
     nbr_vecs: object = None
 
     def with_neighbor_cache(self, layout: str = "flat") -> "Granne":
-        """Return a copy serving through a bottom-layer neighbor cache."""
+        """Return a copy serving through a bottom-layer neighbor cache in
+        ``layout``: "flat" (K1) or "tiled" (K2, d <= 128)."""
         from ..ops.nbr_cache import make_neighbor_cache, supports_cache
 
         if not supports_cache(self.elements):

@@ -27,7 +27,8 @@ EPS100 = float(np.float32(100.0) * np.finfo(np.float32).eps)  # zero/dup thresho
 TIE_EPS = 1e-6
 
 
-def select_neighbors(elements, cand_ids, cand_d, valid, max_neighbors: int):
+def select_neighbors(elements, cand_ids, cand_d, valid, max_neighbors: int,
+                     cand_vecs=None, return_vecs: bool = False):
     """Batched select_neighbors.
 
     Args:
@@ -35,12 +36,23 @@ def select_neighbors(elements, cand_ids, cand_d, valid, max_neighbors: int):
       cand_d: f32[B, C] distances to the (implicit) query.
       valid: bool[B, C].
       max_neighbors: M.
+      cand_vecs: optional pre-gathered candidate vectors [B, C, d] (the
+        cache-fed merge): the pairwise distances come from them instead of
+        C element-row gathers per node.
+      return_vecs: with ``cand_vecs``, also return the kept vectors
+        [B, M, d] (pad slots hold candidate 0's vector; their ids are -1),
+        so the caller can refresh a cache row without gathering.
 
     Returns (ids int32[B, M], dists f32[B, M]): kept neighbors in distance
-    order, padded with (-1, inf).
+    order, padded with (-1, inf); plus the kept vectors with ``return_vecs``.
     """
+    if return_vecs and cand_vecs is None:
+        raise ValueError("return_vecs needs cand_vecs")
     C = cand_ids.shape[1]
-    pair = elements.pairwise_from_ids(cand_ids)  # [B, C, C]
+    if cand_vecs is not None:
+        pair = elements.pairwise_from_vecs(cand_vecs)  # [B, C, C]
+    else:
+        pair = elements.pairwise_from_ids(cand_ids)
     bypass = valid.sum(dim=1) <= max_neighbors
     # closer[b, j, k]: kept k would be strictly closer to j than the query is.
     # The reference stops at max_neighbors keeps; the cap is applied after the
@@ -51,4 +63,8 @@ def select_neighbors(elements, cand_ids, cand_d, valid, max_neighbors: int):
     for j in range(C):
         keep[:, j] = valid[:, j] & ~torch.any(keep & closer[:, j, :], dim=1)
     keep = torch.where(bypass[:, None], valid, keep)
-    return compact_by_mask(cand_ids, cand_d, keep, max_neighbors)
+    if not return_vecs:
+        return compact_by_mask(cand_ids, cand_d, keep, max_neighbors)
+    ids, dists, pos = compact_by_mask(cand_ids, cand_d, keep, max_neighbors, with_pos=True)
+    idx = pos.long()[:, :, None].expand(-1, -1, cand_vecs.shape[2])
+    return ids, dists, torch.gather(cand_vecs, 1, idx)

@@ -8,13 +8,19 @@ contraction, and the candidates are merged back into the beam.  The search
 ends when no unexpanded entry is left (or after ``max_iters`` iterations).
 With ``ef=1`` the same loop is the greedy upper-layer descent.
 
-Candidates come from one of two places:
+Candidates come from one of four places:
 
 * the plain adjacency gather plus ``elements.dist_ids_to_queries`` (the
-  build, and serving without a cache);
+  build and serving without a cache); ``gather_budget`` then scores only
+  the first G candidates that survive the dedupe;
 * a flat bf16 neighbor cache (``ops.nbr_cache``) through the fused kernel
   ``ops.kernels.nbr_score.gather_score_flat`` (K1): one row read per
-  expanded node yields the neighbor ids and their dots at once.
+  expanded node yields the neighbor ids and their dots at once;
+* a tiled bf16 cache: ids from the adjacency, dots from the kernel
+  ``gather_score`` (K2) through ``nbr_cache.score_cached``;
+* a flat f32 cache: one row gather yields the ids and exact f32 vectors,
+  scored by ``elements.score_block`` (plain PyTorch: the JAX package has no
+  kernel for it either); the seeds are scored from the same exact rows.
 
 Testing for convergence costs a device-to-host sync, so the loop tests it
 only every ``_CHECK_EVERY`` iterations.  That changes nothing: once no
@@ -28,7 +34,7 @@ import torch
 
 from ..elements.base import supports_cache
 from .kernels.nbr_score import gather_score_flat
-from .nbr_cache import not_ported, table_kind
+from .nbr_cache import row_vecs, score_cached, table_kind, unpack_ids
 from .topk import INF, UNUSED, merge_sorted_topk, sort_by_key
 
 _CHECK_EVERY = 4
@@ -61,15 +67,17 @@ def beam_search(
       ef: beam width (the reference's ``max_search``).
       expand: beam slots expanded per iteration.
       max_iters: iteration cap (default ``default_max_iters``).
-      nbr_vecs: optional flat bf16 neighbor cache of THIS layer; candidates
-        are then scored by the K1 kernel.
+      gather_budget: if set (< expand*M), the candidates that survive the
+        dedupe are left-compacted and only the first ``gather_budget`` are
+        scored; the rest are dropped (closest parent first).  A cache
+        overrides it: cache rows are read per expanded node.
+      nbr_vecs: optional neighbor cache of THIS layer (any layout of
+        ``ops.nbr_cache``).
 
     Returns:
       (ids int32[B, ef], dists f32[B, ef]), ascending by distance, padded
       with (-1, +inf).
     """
-    if gather_budget is not None:
-        raise not_ported("gather_budget")
     if max_iters is None:
         max_iters = default_max_iters(ef, expand)
     B = entry_ids.shape[0]
@@ -77,20 +85,26 @@ def beam_search(
     E = expand
     EM = E * M
     dev = adj.device
+    kind = None
     if nbr_vecs is not None:
-        if table_kind(nbr_vecs) != "flat-bf16":
-            raise not_ported(f"a {table_kind(nbr_vecs)!r} neighbor cache")
+        kind = table_kind(nbr_vecs)
         if not supports_cache(elements):
             raise ValueError(f"{type(elements).__name__} cannot score a neighbor cache")
         q_lanes = queries.to(torch.bfloat16).contiguous()
         d_q = queries.shape[-1]
+        gather_budget = None  # cache rows are keyed by expanded node, not candidate
+    G = EM if gather_budget is None else max(1, min(gather_budget, EM))
 
     # seed the beam with one entry per query ([B]) or K entries ([B, K])
     if entry_ids.ndim == 1:
         entry_ids = entry_ids[:, None]
     K = min(entry_ids.shape[1], ef)
     entry_ids = entry_ids[:, :K]
-    e_d = elements.dist_ids_to_queries(entry_ids, queries)
+    if kind == "flat-f32":
+        # one exact metric for every beam entry: seeds scored as the cached candidates are
+        e_d = elements.score_block(elements.cache_rows_exact(entry_ids.clamp_min(0)), queries)
+    else:
+        e_d = elements.dist_ids_to_queries(entry_ids, queries)
     e_valid = entry_ids >= 0
     if K > 1:  # drop duplicate seeds (first occurrence wins)
         eq_s = entry_ids[:, :, None] == entry_ids[:, None, :]
@@ -108,7 +122,7 @@ def beam_search(
 
     # candidate j is a duplicate if an earlier candidate of the round equals it
     earlier = torch.ones((EM, EM), dtype=torch.bool, device=dev).tril(-1)
-    no_flags = torch.zeros((B, EM), dtype=torch.bool, device=dev)
+    no_flags = torch.zeros((B, G), dtype=torch.bool, device=dev)
 
     for it in range(max_iters):
         open_ = ~bexp & (bids >= 0)
@@ -124,9 +138,12 @@ def beam_search(
         sel_valid = sel_ids >= 0
         bexp = bexp | sel
 
-        # 2. candidate ids (and, from the cache, their dots) of the selected nodes
-        if nbr_vecs is not None:
+        # 2. candidate ids (and, from a flat cache, their dots or vectors)
+        if kind == "flat-bf16":
             dots, nbrs = gather_score_flat(nbr_vecs, sel_ids, q_lanes, M=M, d=d_q)
+        elif kind == "flat-f32":
+            crows = nbr_vecs.index_select(0, sel_ids.reshape(-1).clamp(0, nbr_vecs.shape[0] - 1).long())
+            nbrs = unpack_ids(crows, M, d_q).reshape(B, EM)
         else:
             rows = sel_ids.reshape(-1).clamp(0, adj.shape[0] - 1).long()
             nbrs = adj.index_select(0, rows).reshape(B, EM)
@@ -137,9 +154,19 @@ def beam_search(
         cand_valid &= ~torch.any(eq & earlier[None] & cand_valid[:, None, :], dim=2)
         cand_valid &= ~torch.any(nbrs[:, :, None] == bids[:, None, :], dim=2)
 
+        if G < EM:  # left-compact the survivors, score only the first G
+            ranks = torch.cumsum(cand_valid.to(torch.int32), dim=1) - 1
+            slot = torch.where(cand_valid & (ranks < G), ranks, G).long()
+            nbrs = torch.full((B, G + 1), UNUSED, dtype=torch.int32, device=dev).scatter(1, slot, nbrs)[:, :G]
+            cand_valid = nbrs >= 0
+
         # 4. distances of the whole candidate block
-        if nbr_vecs is not None:
+        if kind == "flat-bf16":
             cand_d = elements.dist_from_dots(dots)
+        elif kind == "flat-f32":
+            cand_d = elements.score_block(row_vecs(crows, M, d_q).reshape(B, EM, d_q), queries)
+        elif kind == "tiled":
+            cand_d = score_cached(nbr_vecs, sel_ids, q_lanes, elements, M)
         else:
             cand_d = elements.dist_ids_to_queries(nbrs, queries)
         cand_d = torch.where(cand_valid, cand_d, INF)
@@ -174,18 +201,25 @@ def search_layers(
     gather_budget: int | None = None,
     nbr_vecs: torch.Tensor | None = None,
     rerank: bool = False,
+    rerank_with=None,
+    rerank_queries: torch.Tensor | None = None,
 ):
     """Full multi-layer search (``search_internal`` in the reference).
 
     ``layers`` is a sequence of adjacency tensors, top (smallest) first.
     ``descent_ef > 1`` widens the LAST upper-layer descent to that beam width
-    and seeds the bottom beam with its entries.  ``nbr_vecs`` is a flat bf16
+    and seeds the bottom beam with its entries.  ``nbr_vecs`` is a neighbor
     cache of the bottom layer.
+
+    ``rerank=True`` re-scores the whole final beam (all ``ef`` entries) with
+    ``rerank_dists`` and sorts by those distances before keeping
+    ``num_neighbors``.  ``rerank_with`` swaps in another container for that
+    pass (serve bf16, rerank against the f32 originals); ``rerank_queries``
+    swaps in its queries (the unrounded f32 unit queries, so the pass carries
+    no query-side serving-dtype error).
 
     Returns (ids int32[B, num_neighbors], dists f32[B, num_neighbors]).
     """
-    if rerank:
-        raise not_ported("rerank")
     B = queries.shape[0]
     dev = queries.device
     if len(layers) == 0:
@@ -207,4 +241,8 @@ def search_layers(
         layers[-1], elements, queries, ep, ef=ef, expand=expand, max_iters=max_iters,
         gather_budget=gather_budget, nbr_vecs=nbr_vecs,
     )
+    if rerank:
+        scorer = elements if rerank_with is None else rerank_with
+        rd = scorer.rerank_dists(ids, queries if rerank_queries is None else rerank_queries)
+        d, ids = sort_by_key(torch.where(ids >= 0, rd, INF), ids)
     return ids[:, :num_neighbors], d[:, :num_neighbors]

@@ -1,17 +1,23 @@
-"""K1: fused flat neighbor-cache gather + scoring + id unpack.
+"""The neighbor-cache scorers K1 (flat layout) and K2 (tiled layout).
 
-Replaces the Pallas TPU kernel
-``granne_tpu/ops/pallas/nbr_score.py::gather_score_flat``.  The CUDA kernel
-is ``granne_tpu_torch/csrc/nbr_score.cu`` (its header says what bounds it on
-the H100 and how the design answers that).  Unlike the TPU kernel it takes
-the plain bf16 query: the query-tile pattern and the segment-indicator
-matmul of the Pallas version only avoid an in-kernel relayout on the TPU,
-and its ``S % 8 == 0`` row rule is the TPU's DMA sublane rule, so any
+K1, ``gather_score_flat``, replaces the Pallas TPU kernel
+``granne_tpu/ops/pallas/nbr_score.py::gather_score_flat``: row gather,
+scoring and id unpack in one pass.  Unlike the TPU kernel it takes the
+plain bf16 query: the query-tile pattern and the segment-indicator matmul
+of the Pallas version only avoid an in-kernel relayout on the TPU, and its
+``S % 8 == 0`` row rule is the TPU's DMA sublane rule, so any
 ``RW == row_width(M, d)`` is accepted here.
 
-``gather_score_flat`` runs the plain PyTorch version for CPU tensors and
-the kernel for CUDA tensors; for a CUDA tensor it launches the kernel or
-raises.  ``gather_score_flat.launches`` counts kernel launches.
+K2, ``gather_score``, replaces ``granne_tpu/ops/pallas/nbr_score.py::gather_score``:
+row gather and scoring over the tiled layout.  It too takes the plain
+bf16[B, d] query (d <= 128) where the JAX wrapper passes the query padded
+to 128 zero lanes: the pad adds only zero products.
+
+Both CUDA kernels are in ``granne_tpu_torch/csrc/nbr_score.cu`` (its header
+says what bounds them on the H100 and how the design answers that).  Each
+wrapper runs its plain PyTorch version for CPU tensors and the kernel for
+CUDA tensors; for a CUDA tensor it launches the kernel or raises.
+``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -31,6 +37,16 @@ _SIGNATURES = {
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,  # sel_ids, B*E, E
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # q, M, d
             ctypes.c_void_p, ctypes.c_void_p,  # dots, nbrs
+            ctypes.c_int, ctypes.c_void_p,  # device, stream
+        ],
+    ),
+    "gt_gather_score": (
+        ctypes.c_int,
+        [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,  # tab, n, Mp
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,  # sel_ids, B*E, E
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # q, M, d
+            ctypes.c_void_p,  # dots
             ctypes.c_int, ctypes.c_void_p,  # device, stream
         ],
     ),
@@ -101,3 +117,65 @@ def gather_score_flat(tab, sel_ids, q, *, M: int, d: int):
 
 
 gather_score_flat.launches = 0
+
+
+def _check_tiled(tab, sel_ids, q, M: int) -> None:
+    if tab.ndim != 3 or tab.dtype != torch.bfloat16 or tab.shape[2] != 128 or not tab.is_contiguous():
+        raise ValueError(f"tab must be a contiguous bf16[n, Mp, 128] table, got {tab.dtype}{tuple(tab.shape)}")
+    if not 0 < M <= tab.shape[1]:
+        raise ValueError(f"M={M} does not fit the table's {tab.shape[1]} vectors per row")
+    if sel_ids.ndim != 2 or sel_ids.dtype != torch.int32 or not sel_ids.is_contiguous():
+        raise ValueError(f"sel_ids must be contiguous int32[B, E], got {sel_ids.dtype}{tuple(sel_ids.shape)}")
+    B = sel_ids.shape[0]
+    if q.ndim != 2 or q.shape[0] != B or not 0 < q.shape[1] <= 128 or q.dtype != torch.bfloat16 \
+            or not q.is_contiguous():
+        raise ValueError(f"q must be contiguous bf16[{B}, d <= 128], got {q.dtype}{tuple(q.shape)}")
+    if not (tab.device == sel_ids.device == q.device):
+        raise ValueError(f"tensors on different devices: {tab.device}, {sel_ids.device}, {q.device}")
+
+
+def gather_score_reference(tab, sel_ids, q, *, M: int):
+    """Plain PyTorch version of K2: row gather, f32 contraction over the
+    first M vectors and the first d lanes."""
+    B, E = sel_ids.shape
+    d = q.shape[1]
+    rows = tab.index_select(0, sel_ids.reshape(-1).clamp(0, tab.shape[0] - 1).long())
+    vecs = rows[:, :M, :d].reshape(B, E * M, d).to(torch.float32)
+    return torch.bmm(vecs, q.to(torch.float32).unsqueeze(-1)).squeeze(-1)
+
+
+def gather_score(tab, sel_ids, q, *, M: int):
+    """Score each query against its E selected nodes' cached neighbors (K2).
+
+    tab: bf16[n, Mp, 128] tiled cache table (``ops.nbr_cache``), Mp >= M;
+    sel_ids: int32[B, E] expanded-node ids (negative ids clip to row 0);
+    q: bf16[B, d] queries, d <= 128.  Returns dots f32[B, E*M], the raw
+    query . neighbor products.
+    """
+    _check_tiled(tab, sel_ids, q, M)
+    if tab.device.type == "cpu":
+        return gather_score_reference(tab, sel_ids, q, M=M)
+    if tab.device.type != "cuda":
+        raise ValueError(f"gather_score takes cpu or cuda tensors, got {tab.device}")
+    lib = load_kernel()
+    B, E = sel_ids.shape
+    dots = torch.empty((B, E * M), dtype=torch.float32, device=tab.device)
+    if B * E == 0:
+        return dots
+    if tab.data_ptr() % 16:
+        raise ValueError("tab must start on a 16-byte boundary")
+    stream = torch.cuda.current_stream(tab.device)
+    err = lib.gt_gather_score(
+        tab.data_ptr(), tab.shape[0], tab.shape[1],
+        sel_ids.data_ptr(), B * E, E,
+        q.data_ptr(), M, q.shape[1],
+        dots.data_ptr(),
+        tab.device.index, stream.cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"gather_score launch failed: {lib.gt_cuda_error_string(err).decode()}")
+    gather_score.launches += 1
+    return dots
+
+
+gather_score.launches = 0

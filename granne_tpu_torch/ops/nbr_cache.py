@@ -1,23 +1,29 @@
-"""Neighbor-vector cache, flat bf16 layout (port of ``granne_tpu/ops/nbr_cache.py``).
+"""Neighbor-vector cache (port of ``granne_tpu/ops/nbr_cache.py``).
 
 Expanding a beam node needs its adjacency row plus the vectors of all M of
-its neighbors: 1 + M random row reads.  The cache stores, per node, all of
-that in ONE contiguous row:
+its neighbors: 1 + M random row reads.  The cache stores, per node, the M
+neighbor vectors in ONE contiguous row, in one of three encodings:
 
-    flat layout: int16[n, pad128(M*d + 2M)] -- the M neighbor vectors (bf16
-        bit patterns) back to back, then the M int32 neighbor ids split into
-        2M int16 lanes (low half first), then zero padding.
+    flat bf16: int16[n, pad128(M*d + 2M)] -- the M neighbor vectors (bf16
+        bit patterns) back to back, then the M int32 neighbor ids split
+        into 2M int16 lanes (low half first), then zero padding.  Scored
+        by the fused kernel K1 (``ops.kernels.nbr_score.gather_score_flat``).
+    flat f32:  int32[n, pad128(M*d + M)] -- the M f32 vectors (bit
+        patterns), then the M int32 ids stored directly.  Twice the bytes,
+        but every cached score is exact.  Scored in plain PyTorch (the JAX
+        package has no kernel for it either).
+    tiled:     bf16[n, pad8(M), 128] -- each vector zero-padded to 128
+        lanes, rows padded to 8 vectors (the TPU's DMA granule); no ids, the
+        beam reads them from the adjacency.  Scored by the kernel K2
+        (``ops.kernels.nbr_score.gather_score``); requires d <= 128.
 
-The table is an INTEGER tensor on purpose: ids whose low or high 16 bits
-fall in [0x7F80, 0x8000) or [0xFF80, 0x10000) are NaN bit patterns as bf16,
-and UNUSED (-1) embeds as 0xFFFF.  A float table may canonicalize NaN
+The flat tables are INTEGER tensors on purpose: ids whose low or high 16
+bits fall in [0x7F80, 0x8000) or [0xFF80, 0x10000) are NaN bit patterns as
+bf16, and UNUSED (-1) embeds as 0xFFFF.  A float table may canonicalize NaN
 payloads and corrupt those ids, and a product with an id lane is NaN, so id
 lanes are only ever viewed as integers.  Bit views go through
 ``Tensor.view(dtype)`` on a contiguous last dim, which is little-endian,
 as JAX's bitcasts are.
-
-The tiled layout (Pallas kernel K2) and the f32 flat rows are not ported
-yet (ROADMAP.md, Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -29,46 +35,63 @@ from ..elements.base import supports_cache
 _CHUNK = 65536
 
 
-def not_ported(what: str) -> NotImplementedError:
-    """The error for a cache feature that a later item of ROADMAP.md ports."""
-    return NotImplementedError(
-        f"{what} is not ported to granne_tpu_torch yet (ROADMAP.md, Queue 1 item 8)"
-    )
-
-
 def row_width(M: int, d: int, dtype=torch.bfloat16) -> int:
-    """Flat cache-row width in int16 lanes: M*d vector lanes + 2M id lanes,
-    zero-padded up to a multiple of 128 (the file-compatible layout of the
-    JAX package)."""
-    if dtype != torch.bfloat16:
-        raise not_ported(f"a {dtype} cache row")
+    """Flat cache-row width in lanes, zero-padded up to a multiple of 128
+    (the layout of the JAX package): bf16 rows hold M*d vector lanes + 2M
+    int16 id lanes, f32 rows M*d vector lanes + M int32 id lanes."""
+    if dtype == torch.float32:
+        return -(-(M * d + M) // 128) * 128
     return -(-(M * d + 2 * M) // 128) * 128
 
 
 def unpack_ids(rows: torch.Tensor, M: int, d: int) -> torch.Tensor:
-    """int16[..., row_width] flat rows -> the embedded int32 ids [..., M]."""
+    """int16|int32[..., row_width] flat rows -> the embedded int32 ids [..., M]."""
+    if rows.dtype == torch.int32:
+        return rows[..., M * d : M * d + M]
     return rows[..., M * d : M * d + 2 * M].contiguous().view(torch.int32)
 
 
 def row_vecs(rows: torch.Tensor, M: int, d: int) -> torch.Tensor:
-    """View the vector payload of flat rows as bf16[..., M*d]."""
-    return rows[..., : M * d].contiguous().view(torch.bfloat16)
+    """View the vector payload of flat rows as bf16|f32[..., M*d]."""
+    dtype = torch.float32 if rows.dtype == torch.int32 else torch.bfloat16
+    return rows[..., : M * d].contiguous().view(dtype)
+
+
+def tiled_height(M: int) -> int:
+    """Tiled cache-row height: M padded up to the TPU's 8-sublane DMA
+    granule (kept so tables stay interchangeable with the JAX package)."""
+    return -(-M // 8) * 8
 
 
 def pack_rows(vals: torch.Tensor, layout: str, ids: torch.Tensor | None = None) -> torch.Tensor:
-    """bf16[R, M, d] neighbor vectors + int32[R, M] ids -> int16[R, row_width]."""
+    """[R, M, d] neighbor vectors -> cache rows in ``layout``.
+
+    flat:  bf16 vectors + int32[R, M] ``ids`` -> int16[R, row_width];
+           f32 vectors + ids -> int32[R, row_width(M, d, f32)].
+    tiled: bf16 vectors -> bf16[R, pad8(M), 128], zero padded (d <= 128).
+    """
+    R, M, d = vals.shape
+    if layout == "tiled":
+        if d > 128:
+            raise ValueError(f"the tiled layout holds d <= 128, got d={d}")
+        out = torch.zeros((R, tiled_height(M), 128), dtype=torch.bfloat16, device=vals.device)
+        out[:, :M, :d] = vals
+        return out
     if layout != "flat":
-        raise not_ported(f"the {layout!r} cache layout")
-    if vals.dtype != torch.bfloat16:
-        raise not_ported(f"a {vals.dtype} cache row")
+        raise ValueError(f"cache layout must be 'flat' or 'tiled', got {layout!r}")
     if ids is None:
         raise ValueError("flat cache rows embed the adjacency ids")
-    R, M, d = vals.shape
-    v = vals.reshape(R, M * d).contiguous().view(torch.int16)
-    idb = ids.to(torch.int32).reshape(R, M).contiguous().view(torch.int16)
-    pad = row_width(M, d) - M * d - 2 * M
-    zeros = torch.zeros((R, pad), dtype=torch.int16, device=vals.device)
-    return torch.cat([v, idb, zeros], dim=1)
+    ids = ids.to(torch.int32).reshape(R, M).contiguous()
+    if vals.dtype == torch.float32:
+        parts = [vals.reshape(R, M * d).contiguous().view(torch.int32), ids]
+    elif vals.dtype == torch.bfloat16:
+        parts = [vals.reshape(R, M * d).contiguous().view(torch.int16), ids.view(torch.int16)]
+    else:
+        raise ValueError(f"flat cache rows hold bf16 or f32 vectors, got {vals.dtype}")
+    dtype = parts[0].dtype
+    pad = row_width(M, d, vals.dtype) - sum(p.shape[1] for p in parts)
+    parts.append(torch.zeros((R, pad), dtype=dtype, device=vals.device))
+    return torch.cat(parts, dim=1)
 
 
 def make_neighbor_cache(
@@ -81,28 +104,31 @@ def make_neighbor_cache(
 ) -> torch.Tensor:
     """Bulk-build the cache for a layer: int32[n, M] adjacency -> table.
 
-    ``rows`` bounds the table to the populated prefix.  Built in ``chunk``
-    row blocks so the gathered f32 vectors stay bounded.  UNUSED (-1) slots
-    cache row 0's vector; readers mask on the embedded id being >= 0.
+    ``rows`` bounds the table to the populated prefix; unlike the JAX
+    package the table holds exactly that many rows.  Built in ``chunk`` row
+    blocks so the gathered vectors stay bounded.  UNUSED (-1) slots cache
+    row 0's vector; readers mask on the id being >= 0.  ``cache_dtype="f32"``
+    (flat only) stores ``elements.cache_rows_exact``.
     """
     if cache_dtype not in ("bf16", "f32"):
         raise ValueError(f"cache_dtype must be 'bf16' or 'f32', got {cache_dtype!r}")
     if cache_dtype == "f32" and layout != "flat":
         raise ValueError("cache_dtype='f32' is only supported for layout='flat'")
-    if layout != "flat":
-        raise not_ported(f"the {layout!r} cache layout")
-    if cache_dtype != "bf16":
-        raise not_ported("the f32 cache table")
+    if layout not in ("flat", "tiled"):
+        raise ValueError(f"cache layout must be 'flat' or 'tiled', got {layout!r}")
     if not supports_cache(elements):
         raise ValueError(f"{type(elements).__name__} cannot feed a neighbor cache")
     n, M = adj.shape
     if rows is not None:
         n = min(n, rows)
-    out = torch.empty((n, row_width(M, elements.dim)), dtype=torch.int16, device=adj.device)
+    rows_of = elements.cache_rows_exact if cache_dtype == "f32" else elements.cache_rows
+    parts = []
     for lo in range(0, n, chunk):
-        a = adj[lo : lo + chunk]
-        out[lo : lo + a.shape[0]] = pack_rows(elements.cache_rows(a.clamp_min(0)), "flat", ids=a)
-    return out
+        a = adj[lo : min(lo + chunk, n)]
+        parts.append(pack_rows(rows_of(a.clamp_min(0)), layout, ids=a))
+    if not parts:
+        parts.append(pack_rows(rows_of(adj[:0].clamp_min(0)), layout, ids=adj[:0]))
+    return torch.cat(parts)
 
 
 def table_kind(tab: torch.Tensor) -> str:
@@ -114,3 +140,31 @@ def table_kind(tab: torch.Tensor) -> str:
     if tab.dtype == torch.int16:
         return "flat-bf16"
     raise ValueError(f"not a cache table: ndim={tab.ndim} dtype={tab.dtype}")
+
+
+def rows_to_vecs(tab: torch.Tensor, ids: torch.Tensor, M: int, d: int) -> torch.Tensor:
+    """Gather the cache rows of ``ids`` [N] as [N, M, d] neighbor vectors
+    (either layout): one row read per id instead of M element rows, the
+    cache-fed merge's source."""
+    rows = tab.index_select(0, ids.clamp(0, tab.shape[0] - 1).long())
+    if tab.ndim == 2:
+        return row_vecs(rows, M, d).reshape(ids.shape[0], M, d)
+    return rows[:, :M, :d]
+
+
+def score_cached(tab: torch.Tensor, sel_ids: torch.Tensor, queries: torch.Tensor, elements, M: int):
+    """Distances from queries [B, d] to the cached neighbors of their E
+    expanded nodes ``sel_ids`` [B, E]: f32[B, E*M].
+
+    A tiled table goes through K2 and ``dist_from_dots``; a flat table
+    through a row gather and ``elements.score_block``.
+    """
+    from .kernels.nbr_score import gather_score  # the kernel module reads this one's layout
+
+    B, E = sel_ids.shape
+    if table_kind(tab) == "tiled":
+        q = queries.to(torch.bfloat16).contiguous()
+        return elements.dist_from_dots(gather_score(tab, sel_ids.contiguous(), q, M=M))
+    d = queries.shape[-1]
+    rows = tab.index_select(0, sel_ids.reshape(-1).clamp(0, tab.shape[0] - 1).long())
+    return elements.score_block(row_vecs(rows, M, d).reshape(B, E * M, d), queries)

@@ -41,19 +41,26 @@ def merge_sorted_topk(a_d, a_vals, b_d, b_vals, k: int):
     return sd[..., :k], tuple(v[..., :k] for v in svals)
 
 
-def compact_by_mask(ids: torch.Tensor, dists: torch.Tensor, keep: torch.Tensor, k: int):
+def compact_by_mask(ids: torch.Tensor, dists: torch.Tensor, keep: torch.Tensor, k: int,
+                    with_pos: bool = False):
     """Left-compact kept entries into fixed-width [B, k] buffers.
 
     ``ids``/``dists``/``keep`` are [B, C]; entries with ``keep`` move to the
     front in order (at most ``k``); the rest is padded with (-1, +inf).
     Entries that do not fit land in a spare column ``k`` that is cut off,
-    so no boolean indexing waits on the device.
+    so no boolean indexing waits on the device.  With ``with_pos`` also
+    returns int32[B, k] source columns (0 for pad slots), to carry side
+    tensors through the compaction.
     """
-    B = ids.shape[0]
+    B, C = ids.shape
     rank = torch.cumsum(keep.to(torch.int32), dim=1) - 1
     slot = torch.where(keep & (rank < k), rank, k).long()
     out_ids = torch.full((B, k + 1), UNUSED, dtype=ids.dtype, device=ids.device)
     out_d = torch.full((B, k + 1), INF, dtype=dists.dtype, device=dists.device)
     out_ids = out_ids.scatter(1, slot, ids)
     out_d = out_d.scatter(1, slot, dists)
-    return out_ids[:, :k], out_d[:, :k]
+    if not with_pos:
+        return out_ids[:, :k], out_d[:, :k]
+    src = torch.arange(C, dtype=torch.int32, device=ids.device).expand(B, C)
+    out_pos = torch.zeros((B, k + 1), dtype=torch.int32, device=ids.device).scatter(1, slot, src)
+    return out_ids[:, :k], out_d[:, :k], out_pos[:, :k]

@@ -32,6 +32,18 @@ def _release_compiled_jax():
     jax.clear_caches()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Run this module's torch ops on one thread, then restore the count:
+    the test suite runs several workers at once, and torch's intra-op
+    threads on top of them oversubscribe the cores, which slows its small
+    eager ops (a wave build is thousands of them) many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, D, NQ, K = 2000, 32, 256, 10
 CFG = dict(num_neighbors=12, max_search=32)

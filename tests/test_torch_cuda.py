@@ -1,5 +1,5 @@
-"""The CUDA kernels on the card (K1, K3, K4, K5) against their plain
-PyTorch versions, and the searches that launch them.
+"""The CUDA kernels on the card (K1, K2, K3, K4, K5) against their plain
+PyTorch versions, and the searches and builds that launch them.
 
 Needs an NVIDIA GPU and nvcc; every test skips elsewhere.  This file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -15,8 +15,13 @@ import granne_tpu_torch as g
 from granne_tpu_torch.index.granne import Granne
 from granne_tpu_torch.ops import distance
 from granne_tpu_torch.ops.kernels import ivf_score as K
-from granne_tpu_torch.ops.kernels.nbr_score import gather_score_flat, gather_score_flat_reference
-from granne_tpu_torch.ops.nbr_cache import pack_rows
+from granne_tpu_torch.ops.kernels.nbr_score import (
+    gather_score,
+    gather_score_flat,
+    gather_score_flat_reference,
+    gather_score_reference,
+)
+from granne_tpu_torch.ops.nbr_cache import make_neighbor_cache, pack_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -77,6 +82,74 @@ def test_cached_search_runs_k1_and_matches_cpu(cuda):
     overlap = np.mean([len(set(a) & set(c)) / 5 for a, c in zip(ids.cpu().numpy(), cids.numpy())])
     assert overlap > 0.99
     np.testing.assert_allclose(np.sort(d.cpu().numpy()), np.sort(cd.numpy()), atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "n,M,d,B,E",
+    [
+        (200_000, 20, 100, 1024, 1),  # the serve shape
+        (200_000, 20, 100, 1024, 4),  # the build's expand
+        (400, 6, 20, 32, 3),
+        (300, 9, 128, 17, 2),  # d = 128: every lane live; M odd: a lone vector in the last pair
+        (50, 3, 7, 5, 1),  # d not a multiple of 8
+    ],
+)
+def test_k2_kernel_matches_plain(cuda, n, M, d, B, E):
+    """K2 on a table built by make_neighbor_cache from half-unfilled rows
+    (-1 slots cache row 0's vector): within 1e-4 of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    el = g.AngularVectors(distance.normalize(torch.randn((n, d), generator=gen, device=cuda)))
+    adj = torch.randint(0, n, (n, M), generator=gen, device=cuda, dtype=torch.int32)
+    adj[::2, M // 2 :] = -1
+    tab = make_neighbor_cache(adj, el, layout="tiled")
+    sel = torch.randint(-3, n, (B, E), generator=gen, device=cuda, dtype=torch.int32)
+    q = distance.normalize(torch.randn((B, d), generator=gen, device=cuda)).to(torch.bfloat16)
+    before = gather_score.launches
+    dots = gather_score(tab, sel, q, M=M)
+    torch.cuda.synchronize()
+    assert gather_score.launches == before + 1
+    ref = gather_score_reference(tab, sel, q, M=M)
+    assert dots.shape == (B, E * M) and torch.isfinite(dots).all()
+    # both sum exact bf16 products in f32; only the summation order differs
+    assert float((dots - ref).abs().max()) <= 1e-4
+
+
+def _jaccard(a, b):
+    agree = total = 0
+    for ra, rb in zip(a, b):
+        sa, sb = {int(x) for x in ra if x >= 0}, {int(x) for x in rb if x >= 0}
+        union = len(sa | sb)
+        agree += len(sa & sb) if union else 1
+        total += union if union else 1
+    return agree / total
+
+
+def test_tiled_cache_build_on_card_matches_cpu(cuda):
+    """A tiled cache-fed build on the card launches K2 and gives the CPU
+    build's graph (per-layer edge Jaccard >= 0.99); tiled serving on the
+    card overlaps the CPU's >= 0.99."""
+    rng = np.random.default_rng(1)
+    vecs = rng.standard_normal((2000, 48)).astype(np.float32)
+    cfg = g.BuildConfig(num_neighbors=12, max_search=32, neighbor_cache=True, neighbor_cache_layout="tiled")
+    card_el = g.AngularVectors.from_raw(vecs, device=cuda)
+    cpu_el = g.AngularVectors(card_el.vectors.cpu())
+    before = gather_score.launches
+    card = g.build_layers(card_el, cfg)
+    torch.cuda.synchronize()
+    assert gather_score.launches > before
+    cpu = g.build_layers(cpu_el, cfg)
+    assert card.counts == cpu.counts
+    for a, b in zip(card.as_numpy(), cpu.as_numpy()):
+        assert _jaccard(a, b) >= 0.99
+    serve = Granne(layers=card, elements=card_el.as_bf16()).with_neighbor_cache("tiled")
+    before = gather_score.launches
+    ids, d = serve.search_batch(vecs[:256], max_search=32, num_neighbors=5)
+    assert gather_score.launches > before and torch.isfinite(d).all()
+    cids, _ = Granne(layers=cpu, elements=cpu_el.as_bf16()).with_neighbor_cache("tiled").search_batch(
+        vecs[:256], max_search=32, num_neighbors=5
+    )
+    overlap = np.mean([len(set(a) & set(c)) / 5 for a, c in zip(ids.cpu().numpy(), cids.numpy())])
+    assert overlap >= 0.99
 
 
 def _ivf_case(dev, dtype, k, L, d, S, cap, seed=0):

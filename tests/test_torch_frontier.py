@@ -137,11 +137,16 @@ def test_empty_index_and_unported_options():
     q = el.prepare_queries(np.ones((2, 3), np.float32))
     ids, d = frontier.search_layers((), el, q, ef=4, num_neighbors=3)
     assert (ids == -1).all() and torch.isinf(d).all()
+    # rerank and gather_budget (once NotImplementedError) on a layer with no
+    # edges: only the entry point is found, with its exact distance
     adj = torch.full((4, 2), -1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        frontier.search_layers((adj,), el, q, ef=4, num_neighbors=3, rerank=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        frontier.beam_search(adj, el, q, torch.zeros(2, dtype=torch.int32), ef=4, gather_budget=2)
+    ids, d = frontier.search_layers((adj,), el, q, ef=4, num_neighbors=3, rerank=True)
+    assert ids.tolist() == [[0, -1, -1]] * 2 and torch.isinf(d[:, 1:]).all()
+    assert torch.allclose(d[:, 0], el.rerank_dists(ids[:, :1], q)[:, 0])
+    entry = torch.zeros(2, dtype=torch.int32)
+    budget = frontier.beam_search(adj, el, q, entry, ef=4, gather_budget=2)
+    plain = frontier.beam_search(adj, el, q, entry, ef=4)
+    assert torch.equal(budget[0], plain[0]) and torch.equal(budget[1], plain[1])
 
 
 def test_jax_layer_stack_round_trip(jax_graph):

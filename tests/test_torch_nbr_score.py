@@ -74,14 +74,25 @@ def test_make_neighbor_cache_bit_equal_to_jax(rng, dtype):
 
 
 def test_unported_cache_variants_raise(rng):
+    """The tiled layout and f32 rows, once NotImplementedError, now build
+    their tables (tests/test_torch_nbr_tiled.py holds them against JAX);
+    unknown dtypes and layouts, and f32 tiled rows, still raise."""
     el = AngularVectors.from_raw(rng.standard_normal((8, 4)).astype(np.float32), device="cpu")
     adj = torch.full((8, 2), -1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        nbr_cache.make_neighbor_cache(adj, el, layout="tiled")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        nbr_cache.make_neighbor_cache(adj, el, cache_dtype="f32")
+    adj[3, 0] = 5
+    tiled = nbr_cache.make_neighbor_cache(adj, el, layout="tiled")
+    assert tiled.dtype == torch.bfloat16 and tiled.shape == (8, 8, 128)
+    assert torch.equal(tiled[3, 0, :4], el.cache_rows(torch.tensor(5))) and not tiled[:, :, 4:].any()
+    f32 = nbr_cache.make_neighbor_cache(adj, el, cache_dtype="f32")
+    assert f32.dtype == torch.int32 and f32.shape == (8, 128) and nbr_cache.table_kind(f32) == "flat-f32"
+    assert torch.equal(nbr_cache.unpack_ids(f32, 2, 4), adj)
+    assert torch.equal(nbr_cache.row_vecs(f32, 2, 4)[3, :4], el.vectors[5])
     with pytest.raises(ValueError, match="cache_dtype"):
         nbr_cache.make_neighbor_cache(adj, el, cache_dtype="f16")
+    with pytest.raises(ValueError, match="layout"):
+        nbr_cache.make_neighbor_cache(adj, el, layout="blocked")
+    with pytest.raises(ValueError, match="only supported for layout='flat'"):
+        nbr_cache.make_neighbor_cache(adj, el, layout="tiled", cache_dtype="f32")
 
 
 def test_gather_score_flat_matches_pallas(rng):
