@@ -3,19 +3,20 @@
 starts and is right on an NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py --baseline-nbr-score OLD.cu   # also time an earlier K1/K2
 
 In the order it runs:
 
 1. Builds every CUDA kernel of the main paths from ``granne_tpu_torch/csrc``
-   (and the shared adjacency codec with g++), all compilers started together.
+   (and the port's adjacency codec, ``csrc/codec.cpp``, with g++), all
+   compilers started together, and prints nvcc's ``-Xptxas -v`` report of
+   ``nbr_score.cu`` (registers, shared memory, spills of each kernel).
 2. K1 (``gather_score_flat``) against its plain PyTorch version on the card
    at the serve shape n=200,000, M=20, d=100, B=1024, E in {1, 4}: ids
    exactly equal, dots within 1e-4 (both sum exact bf16 products in f32 and
-   differ only in summation order), finite dots on half-unfilled rows, and
-   both times from CUDA events.
+   differ only in summation order), finite dots on half-unfilled rows.
 3. K2 (``gather_score``) the same way on the tiled layout of that shape
-   (24 vectors of 128 lanes a row): dots within 1e-4, both times, K1's time
-   at the same E beside it.
+   (24 vectors of 128 lanes a row): dots within 1e-4.
 4. K3/K4/K5 (``ivf_score_slots``, ``ivf_score_slots_grouped``,
    ``ivf_score_topk``) against their plain versions on the card, with bf16,
    f32 and int8 blocks, at the IVF path's shape (1,000 blocks of L=256,
@@ -52,6 +53,16 @@ In the order it runs:
    50,000-row chunks) whose recall at nprobe 16 is at most 0.01 below the
    int8 brute-force recall.  The path must have launched K3, K4 and K5.
 
+Every kernel and its plain version are timed on the same inputs in turns
+(plain, kernel, kernel, plain) two ways: ``device_ms`` / ``plain_ms``, CUDA
+events around replays of one CUDA graph that holds all the timed calls
+(device time alone; K1/K2 take 50 calls with their own random ``sel_ids``
+each, rows drawn from the whole 819 MB / 1.2 GB table, so the 50 MB L2
+stays cold), and ``eager_ms`` / ``plain_eager_ms``, CUDA events around a
+host loop of the same calls (what a caller pays per call, host included).
+``ms`` is ``device_ms``.  With ``--baseline-nbr-score``, an earlier
+``nbr_score.cu`` with the same C interface is built beside this checkout's
+and its K1/K2 timed in the same graph turns (``baseline_device_ms``).
 Each kernel's record carries the bound for its timed work (the larger of
 bytes over 3.35 TB/s and bf16 operations over 989 TFLOP/s, the H100 SXM
 peaks) and ``library_ms`` null: no single PyTorch call gathers rows by id
@@ -79,7 +90,8 @@ EFS = (32, 40, 60, 80, 120)
 TARGET_RECALL = 0.95
 K1_ATOL = 1e-4
 K2_ATOL = 1e-4
-TIMED_LAUNCHES = 50
+TIMED_LAUNCHES = 50  # calls per timed loop, and per captured graph
+GRAPH_REPLAYS = 5
 RECALL_SLACK = 0.02  # a cache-fed build may lose this much recall against the main path
 F32_OVERLAP = 0.999  # f32-table serving vs the uncached f32 search
 FLAT_BUILD_N = 50_000
@@ -113,7 +125,9 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, args_list, torch) -> float:
-    """Mean device milliseconds per call of ``fn`` over ``args_list``."""
+    """Eager milliseconds per call of ``fn`` over ``args_list``: CUDA events
+    around a host loop of calls, so the host's cost per call shows whenever
+    it exceeds the device's."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for args in args_list:
@@ -121,6 +135,29 @@ def cuda_ms(fn, args_list, torch) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / len(args_list)
+
+
+def capture(torch, fn, args_list):
+    """One CUDA graph of ``fn`` over every entry of ``args_list``."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for args in args_list:
+            fn(*args)
+    return graph
+
+
+def replay_ms(torch, graph, calls: int) -> float:
+    """Device milliseconds per call of a captured graph of ``calls`` calls:
+    CUDA events around GRAPH_REPLAYS replays after one warm replay, so no
+    host work sits between the launches."""
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (GRAPH_REPLAYS * calls)
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -140,20 +177,54 @@ def gather_bound(torch, sels, row_bytes: int, out_bytes_per_dot: int, M: int) ->
     return bound(nbytes, 2.0 * B * E * M * D)
 
 
-def timed_pair(torch, kernel, plain, args):
-    """(kernel ms, plain ms) per call: warmed, then plain, kernel, kernel,
-    plain so both sides see the same drift."""
-    cuda_ms(kernel, args[:3], torch)
+def timed_pair(torch, kernel, plain, args, baseline=None) -> dict:
+    """Per-call times of ``kernel`` and ``plain`` over ``args``, in turns
+    plain, kernel, kernel, plain so both see the same drift: ``device_ms``
+    / ``plain_ms`` from graph replay (device time alone), ``eager_ms`` /
+    ``plain_eager_ms`` from the eager loop (what a caller pays per call).
+    ``baseline``, an earlier build of the kernel, adds
+    ``baseline_device_ms``, timed in turns with the kernel's graph."""
+    cuda_ms(kernel, args[:3], torch)  # warm: builds, allocator, caches
     cuda_ms(plain, args[:3], torch)
     p1, k1, k2, p2 = (cuda_ms(f, args, torch) for f in (plain, kernel, kernel, plain))
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    fns = {"plain_ms": plain, "device_ms": kernel}
+    if baseline is not None:
+        fns["baseline_device_ms"] = baseline
+    graphs = {key: capture(torch, fn, args) for key, fn in fns.items()}
+    order = list(graphs) + list(graphs)[::-1]
+    times = {key: [] for key in graphs}
+    for key in order:
+        times[key].append(replay_ms(torch, graphs[key], len(args)))
+    del graphs
+    return {"eager_ms": (k1 + k2) / 2, "plain_eager_ms": (p1 + p2) / 2,
+            **{key: sum(t) / len(t) for key, t in times.items()}}
 
 
-def k1_phase(torch):
-    """K1 vs its plain version at the serve shape.  Returns the kernel record
-    (timed at E=1, the serving path's) and its times at each E."""
+def scorer_cases(torch, gen, tab, check, kernel, plain, baseline, bound_of, what):
+    """Check ``kernel`` against ``plain`` and time both, at B = SERVE_B and
+    E in (1, 4), TIMED_LAUNCHES random ``sel_ids`` each (rows from the
+    whole table, so the 50 MB L2 stays cold across a graph's replays).
+    Returns {E: times and bound} and the largest error."""
     from granne_tpu_torch.ops import distance
-    from granne_tpu_torch.ops.kernels.nbr_score import gather_score_flat, gather_score_flat_reference
+
+    out, worst = {}, 0.0
+    for E in (1, 4):
+        sels = [
+            torch.randint(-2, N, (SERVE_B, E), generator=gen, device="cuda", dtype=torch.int32)
+            for _ in range(TIMED_LAUNCHES)
+        ]
+        q = distance.normalize(torch.randn((SERVE_B, D), generator=gen, device="cuda")).to(torch.bfloat16)
+        worst = max(worst, check(kernel(tab, sels[0], q), plain(tab, sels[0], q), E))
+        out[E] = {**timed_pair(torch, kernel, plain, [(tab, s, q) for s in sels], baseline), **bound_of(sels)}
+        log(f"{what} B={SERVE_B} E={E}: max_abs_err={worst} {out[E]}")
+    return out, worst
+
+
+def k1_phase(torch, base_lib):
+    """K1 vs its plain version at the serve shape.  Returns the kernel record
+    (timed at E=1, the serving path's); both E are logged."""
+    from granne_tpu_torch.ops import distance
+    from granne_tpu_torch.ops.kernels import nbr_score as ns
     from granne_tpu_torch.ops.nbr_cache import pack_rows
 
     dev = torch.device("cuda")
@@ -164,15 +235,9 @@ def k1_phase(torch):
     adj[1, :3] = torch.tensor([0x7F85, 0xFF90, 0x1FF85], dtype=torch.int32)  # NaN-pattern halves
     tab = pack_rows(vecs, "flat", ids=adj)
     del vecs
-    rec = {"max_abs_err": 0.0, "by_expand": {}}
-    for E in (1, 4):
-        sels = [
-            torch.randint(-2, N, (SERVE_B, E), generator=gen, device=dev, dtype=torch.int32)
-            for _ in range(TIMED_LAUNCHES)
-        ]
-        q = distance.normalize(torch.randn((SERVE_B, D), generator=gen, device=dev)).to(torch.bfloat16)
-        ref_d, ref_n = gather_score_flat_reference(tab, sels[0], q, M=M, d=D)
-        ker_d, ker_n = gather_score_flat(tab, sels[0], q, M=M, d=D)
+
+    def check(got, want, E):
+        (ker_d, ker_n), (ref_d, ref_n) = got, want
         torch.cuda.synchronize()
         if not torch.equal(ker_n, ref_n):
             fail(f"K1 ids differ from the plain version at E={E}")
@@ -181,27 +246,28 @@ def k1_phase(torch):
         err = float((ker_d - ref_d).abs().max())
         if err > K1_ATOL:
             fail(f"K1 dots differ from the plain version by {err} > {K1_ATOL} at E={E}")
-        args = [(tab, s, q) for s in sels]
-        kernel = lambda t, s, qq: gather_score_flat(t, s, qq, M=M, d=D)  # noqa: E731
-        plain = lambda t, s, qq: gather_score_flat_reference(t, s, qq, M=M, d=D)  # noqa: E731
-        ms, plain_ms = timed_pair(torch, kernel, plain, args)
-        b = gather_bound(torch, sels, (M * D + 2 * M) * 2, 8, M)
-        log(f"K1 B={SERVE_B} E={E}: max_abs_err={err} kernel_ms={ms} plain_ms={plain_ms} bound={b}")
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        rec["by_expand"][E] = ms
-        if E == 1:  # the main path serves with expand=1
-            rec.update(ms=ms, plain_ms=plain_ms, **b)
+        return err
+
+    baseline = None
+    if base_lib is not None:
+        baseline = lambda t, s, qq: ns.launch_flat(base_lib, t, s, qq, M, D)  # noqa: E731
+    by_e, err = scorer_cases(
+        torch, gen, tab, check,
+        lambda t, s, qq: ns.gather_score_flat(t, s, qq, M=M, d=D),
+        lambda t, s, qq: ns.gather_score_flat_reference(t, s, qq, M=M, d=D),
+        baseline, lambda sels: gather_bound(torch, sels, (M * D + 2 * M) * 2, 8, M), "K1",
+    )
     del tab
     torch.cuda.empty_cache()
-    return rec
+    return {"max_abs_err": err, **by_e[1]}  # the main path serves with expand=1
 
 
-def k2_phase(torch, k1_ms):
-    """K2 vs its plain version at the tiled layout's shape; ``k1_ms`` maps E
-    to K1's time at the same shape in this run.  Returns the kernel record
-    (timed at E=4, the build beam's, where the path launches it most)."""
+def k2_phase(torch, base_lib):
+    """K2 vs its plain version at the tiled layout's shape.  Returns the
+    kernel record (timed at E=4, the build beam's, where the path launches
+    it most); both E are logged."""
     from granne_tpu_torch.ops import distance
-    from granne_tpu_torch.ops.kernels.nbr_score import gather_score, gather_score_reference
+    from granne_tpu_torch.ops.kernels import nbr_score as ns
     from granne_tpu_torch.ops.nbr_cache import pack_rows, tiled_height
 
     dev = torch.device("cuda")
@@ -209,35 +275,28 @@ def k2_phase(torch, k1_ms):
     tab = pack_rows(distance.normalize(torch.randn((N, M, D), generator=gen, device=dev)).to(torch.bfloat16), "tiled")
     if tab.shape != (N, tiled_height(M), 128):
         fail(f"tiled table has shape {tuple(tab.shape)}")
-    rec = {"max_abs_err": 0.0}
-    for E in (1, 4):
-        sels = [
-            torch.randint(-2, N, (SERVE_B, E), generator=gen, device=dev, dtype=torch.int32)
-            for _ in range(TIMED_LAUNCHES)
-        ]
-        q = distance.normalize(torch.randn((SERVE_B, D), generator=gen, device=dev)).to(torch.bfloat16)
-        ref = gather_score_reference(tab, sels[0], q, M=M)
-        ker = gather_score(tab, sels[0], q, M=M)
+
+    def check(got, want, E):
         torch.cuda.synchronize()
-        if not bool(torch.isfinite(ker).all()):
+        if not bool(torch.isfinite(got).all()):
             fail(f"K2 gave non-finite dots at E={E}")
-        err = float((ker - ref).abs().max())
+        err = float((got - want).abs().max())
         if err > K2_ATOL:
             fail(f"K2 dots differ from the plain version by {err} > {K2_ATOL} at E={E}")
-        args = [(tab, s, q) for s in sels]
-        ms, plain_ms = timed_pair(
-            torch, lambda t, s, qq: gather_score(t, s, qq, M=M), lambda t, s, qq: gather_score_reference(t, s, qq, M=M),
-            args,
-        )
-        b = gather_bound(torch, sels, M * D * 2, 4, M)
-        log(f"K2 B={SERVE_B} E={E}: max_abs_err={err} kernel_ms={ms} plain_ms={plain_ms} "
-            f"k1_kernel_ms={k1_ms[E]} bound={b}")
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if E == 4:
-            rec.update(ms=ms, plain_ms=plain_ms, **b)
+        return err
+
+    baseline = None
+    if base_lib is not None:
+        baseline = lambda t, s, qq: ns.launch_tiled(base_lib, t, s, qq, M)  # noqa: E731
+    by_e, err = scorer_cases(
+        torch, gen, tab, check,
+        lambda t, s, qq: ns.gather_score(t, s, qq, M=M),
+        lambda t, s, qq: ns.gather_score_reference(t, s, qq, M=M),
+        baseline, lambda sels: gather_bound(torch, sels, M * D * 2, 4, M), "K2",
+    )
     del tab
     torch.cuda.empty_cache()
-    return rec
+    return {"max_abs_err": err, **by_e[4]}
 
 
 def bench_data():
@@ -363,10 +422,9 @@ def ivf_kernel_phase(torch):
                 for kname, (kernel, plain) in pairs.items():
                     times[kname] = timed_pair(torch, kernel, plain, args)
                     if dtype == torch.bfloat16:  # the main path's block type
-                        recs[kname].update(ms=times[kname][0], plain_ms=times[kname][1],
+                        recs[kname].update(**times[kname],
                                            **(topk_bound if kname == "ivf_score_topk" else slot_bound))
-            log(f"K3/K4/K5 {what} S={S}: errs k3/k4/k5 = "
-                f"{[recs[n]['max_abs_err'] for n in recs]} times (kernel_ms, plain_ms) = {times}")
+            log(f"K3/K4/K5 {what} S={S}: errs k3/k4/k5 = {[recs[n]['max_abs_err'] for n in recs]} times = {times}")
             del blocks, ids, scales, keys, qg, ref, k3, k4, v, i, rv, ri
     # exactly duplicated block rows tie in any summation order: the lower column first
     blocks, ids, scales, keys, qg = ivf_case(torch, torch.bfloat16, 4, 64, 40, 6, 7)
@@ -651,8 +709,15 @@ def ivf_path(torch, g, vecs, queries, gt):
 
 
 def main() -> None:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline-nbr-score", metavar="FILE.cu",
+                    help="an earlier nbr_score.cu with the same C interface: built beside this checkout's "
+                         "and its K1/K2 timed the same way (baseline_device_ms)")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs on the card only")
     try:
@@ -661,9 +726,12 @@ def main() -> None:
         fail(f"granne_tpu_torch not importable next to this script: {e}")
     if not os.path.abspath(g.__file__).startswith(REPO + os.sep):
         fail(f"granne_tpu_torch comes from {g.__file__}, not from this checkout")
+    from pathlib import Path
+
+    from granne_tpu_torch.native import codec_source
     from granne_tpu_torch.native import get_lib as load_codec
     from granne_tpu_torch.ops import distance
-    from granne_tpu_torch.ops.kernels import ivf_score, nbr_score
+    from granne_tpu_torch.ops.kernels import build, ivf_score, nbr_score
 
     distance.full_f32()
     smi = subprocess.run(
@@ -674,22 +742,34 @@ def main() -> None:
 
     def timed_build(load):
         t = time.perf_counter()
-        load()
-        return time.perf_counter() - t
+        lib = load()
+        return time.perf_counter() - t, lib
 
     builds = {"nbr_score.cu (nvcc)": nbr_score.load_kernel, "ivf_score.cu (nvcc)": ivf_score.load_kernel,
-              "codec.cpp (g++)": load_codec}
+              f"{os.path.relpath(codec_source(), REPO)} (g++)": load_codec}
+    base_key = None
+    if opts.baseline_nbr_score:
+        src = Path(opts.baseline_nbr_score).resolve()
+        base_key = f"baseline {src} (nvcc)"
+        builds[base_key] = lambda: build.load_library(
+            src, build.BUILD_DIR / "libnbr_score_baseline.so", lambda: [build.find_nvcc(), *build.NVCC_FLAGS],
+            nbr_score.SIGNATURES)
     with ThreadPoolExecutor(len(builds)) as pool:  # every compiler at once
         futures = {name: pool.submit(timed_build, load) for name, load in builds.items()}
-        log("build (in parallel): " + ", ".join(f"{name} {f.result()} s" for name, f in futures.items()))
+        log("build (in parallel): " + ", ".join(f"{name} {f.result()[0]} s" for name, f in futures.items()))
+    base_lib = futures[base_key].result()[1] if base_key else None
+    for name in ("libnbr_score.so", "libnbr_score_baseline.so"):
+        for line in build.BUILD_LOGS.get(name, "").splitlines():
+            if "Used" in line or "spill" in line or "entry function" in line:
+                log(f"{name} {line.strip()}")
 
     def no_jax(after):
         if "jax" in sys.modules or "granne_tpu" in sys.modules:
             fail(f"the port pulled in jax or the JAX package ({after})")
 
-    rec = k1_phase(torch)
+    rec = k1_phase(torch, base_lib)
     no_jax("K1 phase")
-    k2_rec = k2_phase(torch, rec["by_expand"])
+    k2_rec = k2_phase(torch, base_lib)
     no_jax("K2 phase")
     ivf_recs = ivf_kernel_phase(torch)
     no_jax("K3/K4/K5 phase")
@@ -707,8 +787,10 @@ def main() -> None:
     def record(name, source, replaces, n_launches, r):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n_launches,
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "max_abs_err": r["max_abs_err"], "ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "device_ms": r["device_ms"], "eager_ms": r["eager_ms"], "plain_eager_ms": r["plain_eager_ms"],
+            **({"baseline_device_ms": r["baseline_device_ms"]} if "baseline_device_ms" in r else {}),
         }
 
     nbr_src = "granne_tpu_torch/csrc/nbr_score.cu"

@@ -1,19 +1,19 @@
-"""ctypes binding of the adjacency codec shared with the JAX package.
+"""ctypes binding of the port's adjacency codec.
 
-The compressed index format is defined by ONE C++ source,
-``granne_tpu/native/codec.cpp``.  It is read where it lies (located through
-the import system, without importing ``granne_tpu``, whose ``__init__``
-pulls in jax), built with g++ into ``build/granne_tpu_torch`` beside the
-package at first use, and loaded with ctypes.  A failed build raises.
+The compressed index format is defined by ``csrc/codec.cpp``, the port's
+own copy of the JAX package's ``granne_tpu/native/codec.cpp``: the two
+copies define one format (their code is the same line for line, and a port
+index file equals the JAX package's byte for byte, both checked by the
+tests).  It is built with g++ into ``build/granne_tpu_torch`` beside the
+package at first use and loaded with ctypes.  A failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import importlib.util
 from pathlib import Path
 
-from ..ops.kernels.build import BUILD_DIR, load_library
+from ..ops.kernels.build import BUILD_DIR, CSRC_DIR, load_library
 
 GXX_CMD = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 
@@ -28,10 +28,8 @@ _SIGNATURES = {
 
 
 def codec_source() -> Path:
-    spec = importlib.util.find_spec("granne_tpu")
-    if spec is None or not spec.submodule_search_locations:
-        raise RuntimeError("granne_tpu/native/codec.cpp not found: the granne_tpu package is not on the path")
-    return Path(next(iter(spec.submodule_search_locations))) / "native" / "codec.cpp"
+    """The codec's C++ source, inside this package."""
+    return CSRC_DIR / "codec.cpp"
 
 
 def get_lib() -> ctypes.CDLL:

@@ -1,6 +1,6 @@
-"""Compressed adjacency encode/decode through the shared C++ codec.
+"""Compressed adjacency encode/decode through the port's C++ codec.
 
-Format v2 of ``granne_tpu/native/codec.cpp``: ``u32 rows, u32 width,
+Format v2 of ``csrc/codec.cpp`` (the JAX package's format): ``u32 rows, u32 width,
 u32 flags, u32 reserved, u64 payload_len``, per-row payloads (sorted ids,
 delta + StreamVByte coded, or raw u32), then the row-offset table.  Decoded
 rows come back sorted, as in the reference.

@@ -4,8 +4,10 @@ Each CUDA kernel ``csrc/<name>.cu`` has a plain C interface.  At first use
 it is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/granne_tpu_torch/lib<name>.so`` beside the package (a directory
 that git ignores) and loaded with ctypes; the shared adjacency codec
-(``native/``) goes the same way with g++.  A library is rebuilt when its
-source is newer.  Different libraries may build at the same time (one
+(``native/`` over ``csrc/codec.cpp``) goes the same way with g++.  A
+library is rebuilt when its source is newer; the compiler's report of a
+build (for nvcc, ``-Xptxas -v``: registers, shared memory and spills of
+each kernel) stays in ``BUILD_LOGS`` under the library's file name.  Different libraries may build at the same time (one
 lock per library).  A failed build raises with the compiler's output: no
 caller falls back to another path.
 """
@@ -25,12 +27,13 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "granne_tpu_torch"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _locks_guard = threading.Lock()
 _locks: dict[Path, threading.Lock] = {}
 _loaded: dict[Path, ctypes.CDLL] = {}
+BUILD_LOGS: dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -49,8 +52,9 @@ def find_nvcc() -> str:
     )
 
 
-def compile_library(cmd: list[str], src: Path, out: Path) -> None:
-    """Run ``cmd -o <tmp> src`` and move the library to ``out`` atomically."""
+def compile_library(cmd: list[str], src: Path, out: Path) -> str:
+    """Run ``cmd -o <tmp> src``, move the library to ``out`` atomically and
+    return the compiler's output."""
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
     full = [*cmd, "-o", str(tmp), str(src)]
@@ -65,6 +69,7 @@ def compile_library(cmd: list[str], src: Path, out: Path) -> None:
             f"{' '.join(full)}\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)
+    return proc.stdout + proc.stderr
 
 
 def load_library(src: Path, out: Path, compile_cmd, signatures: dict) -> ctypes.CDLL:
@@ -81,7 +86,7 @@ def load_library(src: Path, out: Path, compile_cmd, signatures: dict) -> ctypes.
         if lib is not None:
             return lib
         if not out.exists() or out.stat().st_mtime < src.stat().st_mtime:
-            compile_library(compile_cmd(), src, out)
+            BUILD_LOGS[out.name] = compile_library(compile_cmd(), src, out)
         lib = ctypes.CDLL(str(out))
         for fn, (restype, argtypes) in signatures.items():
             getattr(lib, fn).restype = restype

@@ -18,6 +18,11 @@ says what bounds them on the H100 and how the design answers that).  Each
 wrapper runs its plain PyTorch version for CPU tensors and the kernel for
 CUDA tensors; for a CUDA tensor it launches the kernel or raises.
 ``<wrapper>.launches`` counts kernel launches.
+
+A launch costs the host little and is capture-safe: the library is loaded
+once per process, the outputs come from ``torch.empty``, and the kernel
+goes to ``torch.cuda.current_stream()`` with no host synchronisation, so a
+call inside ``torch.cuda.graph`` is captured and replays.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 from ..nbr_cache import row_vecs, row_width, unpack_ids
 from .build import load_cuda_library
 
-_SIGNATURES = {
+SIGNATURES = {
     "gt_gather_score_flat": (
         ctypes.c_int,
         [
@@ -54,9 +59,48 @@ _SIGNATURES = {
 }
 
 
+_lib = None
+
+
 def load_kernel():
-    """Build (at first use) and load the kernel's library."""
-    return load_cuda_library("nbr_score", _SIGNATURES)
+    """Build (at first use) and load the kernels' library; once loaded, it
+    is returned at once."""
+    global _lib
+    if _lib is None:
+        _lib = load_cuda_library("nbr_score", SIGNATURES)
+    return _lib
+
+
+def _launched(lib, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} launch failed: {lib.gt_cuda_error_string(err).decode()}")
+
+
+def launch_flat(lib, tab, sel_ids, q, M: int, d: int):
+    """K1 from ``lib`` on checked CUDA tensors: (dots, nbrs), uncounted."""
+    B, E = sel_ids.shape
+    dev = tab.device
+    dots = torch.empty((B, E * M), dtype=torch.float32, device=dev)
+    nbrs = torch.empty((B, E * M), dtype=torch.int32, device=dev)
+    if B * E:
+        _launched(lib, lib.gt_gather_score_flat(
+            tab.data_ptr(), tab.shape[0], tab.shape[1], sel_ids.data_ptr(), B * E, E, q.data_ptr(), M, d,
+            dots.data_ptr(), nbrs.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        ), "gather_score_flat")
+    return dots, nbrs
+
+
+def launch_tiled(lib, tab, sel_ids, q, M: int):
+    """K2 from ``lib`` on checked CUDA tensors: dots, uncounted."""
+    B, E = sel_ids.shape
+    dev = tab.device
+    dots = torch.empty((B, E * M), dtype=torch.float32, device=dev)
+    if B * E:
+        _launched(lib, lib.gt_gather_score(
+            tab.data_ptr(), tab.shape[0], tab.shape[1], sel_ids.data_ptr(), B * E, E, q.data_ptr(), M, q.shape[1],
+            dots.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        ), "gather_score")
+    return dots
 
 
 def _check(tab, sel_ids, q, M: int, d: int) -> None:
@@ -95,25 +139,11 @@ def gather_score_flat(tab, sel_ids, q, *, M: int, d: int):
     if tab.device.type != "cuda":
         raise ValueError(f"gather_score_flat takes cpu or cuda tensors, got {tab.device}")
     lib = load_kernel()
-    B, E = sel_ids.shape
-    dots = torch.empty((B, E * M), dtype=torch.float32, device=tab.device)
-    nbrs = torch.empty((B, E * M), dtype=torch.int32, device=tab.device)
-    if B * E == 0:
-        return dots, nbrs
     if tab.data_ptr() % 16:
         raise ValueError("tab must start on a 16-byte boundary")
-    stream = torch.cuda.current_stream(tab.device)
-    err = lib.gt_gather_score_flat(
-        tab.data_ptr(), tab.shape[0], tab.shape[1],
-        sel_ids.data_ptr(), B * E, E,
-        q.data_ptr(), M, d,
-        dots.data_ptr(), nbrs.data_ptr(),
-        tab.device.index, stream.cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"gather_score_flat launch failed: {lib.gt_cuda_error_string(err).decode()}")
+    out = launch_flat(lib, tab, sel_ids, q, M, d)
     gather_score_flat.launches += 1
-    return dots, nbrs
+    return out
 
 
 gather_score_flat.launches = 0
@@ -158,24 +188,11 @@ def gather_score(tab, sel_ids, q, *, M: int):
     if tab.device.type != "cuda":
         raise ValueError(f"gather_score takes cpu or cuda tensors, got {tab.device}")
     lib = load_kernel()
-    B, E = sel_ids.shape
-    dots = torch.empty((B, E * M), dtype=torch.float32, device=tab.device)
-    if B * E == 0:
-        return dots
     if tab.data_ptr() % 16:
         raise ValueError("tab must start on a 16-byte boundary")
-    stream = torch.cuda.current_stream(tab.device)
-    err = lib.gt_gather_score(
-        tab.data_ptr(), tab.shape[0], tab.shape[1],
-        sel_ids.data_ptr(), B * E, E,
-        q.data_ptr(), M, q.shape[1],
-        dots.data_ptr(),
-        tab.device.index, stream.cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"gather_score launch failed: {lib.gt_cuda_error_string(err).decode()}")
+    out = launch_tiled(lib, tab, sel_ids, q, M)
     gather_score.launches += 1
-    return dots
+    return out
 
 
 gather_score.launches = 0

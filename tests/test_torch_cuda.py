@@ -41,7 +41,9 @@ def cuda():
         (200_000, 20, 100, 1024, 4),  # the build's expand
         (400, 8, 121, 32, 2),
         (300, 5, 33, 17, 3),  # M*d odd: the id lanes start off a 4-byte boundary
+        (500, 7, 50, 20, 3),  # d even, vectors 4 bytes apart mod 8: scored lane by lane
         (32, 64, 512, 9, 2),  # one row needs more than 48 KB of shared memory
+        (200_000, 20, 100, 4096, 4),  # 16,384 rows: every warp's ring of slots wraps
     ],
 )
 def test_k1_kernel_matches_plain(cuda, n, M, d, B, E):
@@ -92,6 +94,7 @@ def test_cached_search_runs_k1_and_matches_cpu(cuda):
         (400, 6, 20, 32, 3),
         (300, 9, 128, 17, 2),  # d = 128: every lane live; M odd: a lone vector in the last pair
         (50, 3, 7, 5, 1),  # d not a multiple of 8
+        (200_000, 20, 100, 4096, 4),  # 16,384 rows: every warp's ring of slots wraps
     ],
 )
 def test_k2_kernel_matches_plain(cuda, n, M, d, B, E):
@@ -112,6 +115,56 @@ def test_k2_kernel_matches_plain(cuda, n, M, d, B, E):
     assert dots.shape == (B, E * M) and torch.isfinite(dots).all()
     # both sum exact bf16 products in f32; only the summation order differs
     assert float((dots - ref).abs().max()) <= 1e-4
+
+
+def _tensors(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _graph_replays_eager(kernel, tab, sels, q):
+    """Three launches of ``kernel`` captured in one CUDA graph give the
+    eager launches' outputs exactly, and follow new ids written into the
+    captured ``sel_ids``."""
+    eager = [kernel(tab, s, q) for s in sels]  # also loads the library before the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [kernel(tab, s, q) for s in sels]
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(captured, eager):
+        assert all(torch.equal(a, b) for a, b in zip(_tensors(got), _tensors(want)))
+    gen = torch.Generator(device=tab.device).manual_seed(5)
+    for s in sels:
+        s.copy_(torch.randint(-3, tab.shape[0] + 3, s.shape, generator=gen, device=tab.device, dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, s in zip(captured, sels):
+        assert all(torch.equal(a, b) for a, b in zip(_tensors(got), _tensors(kernel(tab, s, q))))
+
+
+def test_k1_launches_capture_in_a_cuda_graph(cuda):
+    n, M, d, B, E = 20_000, 20, 100, 256, 4
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    vecs = distance.normalize(torch.randn((n, M, d), generator=gen, device=cuda)).to(torch.bfloat16)
+    adj = torch.randint(0, n, (n, M), generator=gen, device=cuda, dtype=torch.int32)
+    adj[::2, M // 2 :] = -1
+    tab = pack_rows(vecs, "flat", ids=adj)
+    sels = [torch.randint(-3, n, (B, E), generator=gen, device=cuda, dtype=torch.int32) for _ in range(3)]
+    q = distance.normalize(torch.randn((B, d), generator=gen, device=cuda)).to(torch.bfloat16)
+    before = gather_score_flat.launches
+    _graph_replays_eager(lambda t, s, qq: gather_score_flat(t, s, qq, M=M, d=d), tab, sels, q)
+    assert gather_score_flat.launches == before + 3 + 3 + 3  # eager, captured, eager again
+
+
+def test_k2_launches_capture_in_a_cuda_graph(cuda):
+    n, M, d, B, E = 20_000, 20, 100, 256, 4
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    tab = pack_rows(distance.normalize(torch.randn((n, M, d), generator=gen, device=cuda)).to(torch.bfloat16), "tiled")
+    sels = [torch.randint(-3, n, (B, E), generator=gen, device=cuda, dtype=torch.int32) for _ in range(3)]
+    q = distance.normalize(torch.randn((B, d), generator=gen, device=cuda)).to(torch.bfloat16)
+    before = gather_score.launches
+    _graph_replays_eager(lambda t, s, qq: gather_score(t, s, qq, M=M), tab, sels, q)
+    assert gather_score.launches == before + 3 + 3 + 3
 
 
 def _jaccard(a, b):
