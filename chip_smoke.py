@@ -4,13 +4,15 @@ starts and is right on an NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --baseline-nbr-score OLD.cu   # also time an earlier K1/K2
+    python3 chip_smoke.py --baseline-ivf-score OLD.cu   # also time an earlier K3/K4
 
 In the order it runs:
 
 1. Builds every CUDA kernel of the main paths from ``granne_tpu_torch/csrc``
    (and the port's adjacency codec, ``csrc/codec.cpp``, with g++), all
    compilers started together, and prints nvcc's ``-Xptxas -v`` report of
-   ``nbr_score.cu`` (registers, shared memory, spills of each kernel).
+   ``nbr_score.cu`` and ``ivf_score.cu`` (registers, shared memory, spills
+   of each kernel).
 2. K1 (``gather_score_flat``) against its plain PyTorch version on the card
    at the serve shape n=200,000, M=20, d=100, B=1024, E in {1, 4}: ids
    exactly equal, dots within 1e-4 (both sum exact bf16 products in f32 and
@@ -62,7 +64,9 @@ stays cold), and ``eager_ms`` / ``plain_eager_ms``, CUDA events around a
 host loop of the same calls (what a caller pays per call, host included).
 ``ms`` is ``device_ms``.  With ``--baseline-nbr-score``, an earlier
 ``nbr_score.cu`` with the same C interface is built beside this checkout's
-and its K1/K2 timed in the same graph turns (``baseline_device_ms``).
+and its K1/K2 timed in the same graph turns (``baseline_device_ms``); with
+``--baseline-ivf-score`` the same for an earlier ``ivf_score.cu`` and its
+K3/K4 at the serve shape.  A baseline that fails to build fails the run.
 Each kernel's record carries the bound for its timed work (the larger of
 bytes over 3.35 TB/s and bf16 operations over 989 TFLOP/s, the H100 SXM
 peaks) and ``library_ms`` null: no single PyTorch call gathers rows by id
@@ -365,8 +369,9 @@ def ivf_case(torch, dtype, k, L, d, S, seed):
     return blocks, ids, scales, keys, qg
 
 
-def ivf_kernel_phase(torch):
-    """K3/K4/K5 vs their plain versions.  Returns {kernel: record}."""
+def ivf_kernel_phase(torch, base_lib):
+    """K3/K4/K5 vs their plain versions (and, with ``base_lib``, an earlier
+    build's K3/K4 timed in the same turns).  Returns {kernel: record}."""
     from granne_tpu_torch.ops.kernels import ivf_score as KS
 
     recs = {n: {"max_abs_err": 0.0} for n in ("ivf_score_slots", "ivf_score_slots_grouped", "ivf_score_topk")}
@@ -419,8 +424,13 @@ def ivf_kernel_phase(torch):
                 slot_bound = bound(blocks_read * d * blocks.element_size() + q_bytes + S * IVF_SLOT_CAP * L * 4, flops)
                 topk_bound = bound(blocks_read * (d * blocks.element_size() + 8) + q_bytes + S * IVF_SLOT_CAP * K * 8,
                                    flops)
+                base = {}
+                if base_lib is not None:
+                    base = {"ivf_score_slots": lambda b, _i, _s, kk, q: KS.launch_scores(base_lib, b, kk, q, 1),
+                            "ivf_score_slots_grouped": lambda b, _i, _s, kk, q: KS.launch_scores(
+                                base_lib, b, kk, q, IVF_GROUP)}
                 for kname, (kernel, plain) in pairs.items():
-                    times[kname] = timed_pair(torch, kernel, plain, args)
+                    times[kname] = timed_pair(torch, kernel, plain, args, base.get(kname))
                     if dtype == torch.bfloat16:  # the main path's block type
                         recs[kname].update(**times[kname],
                                            **(topk_bound if kname == "ivf_score_topk" else slot_bound))
@@ -717,6 +727,9 @@ def main() -> None:
     ap.add_argument("--baseline-nbr-score", metavar="FILE.cu",
                     help="an earlier nbr_score.cu with the same C interface: built beside this checkout's "
                          "and its K1/K2 timed the same way (baseline_device_ms)")
+    ap.add_argument("--baseline-ivf-score", metavar="FILE.cu",
+                    help="an earlier ivf_score.cu with the same C interface: built beside this checkout's "
+                         "and its K3/K4 timed the same way (baseline_device_ms)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs on the card only")
@@ -747,18 +760,21 @@ def main() -> None:
 
     builds = {"nbr_score.cu (nvcc)": nbr_score.load_kernel, "ivf_score.cu (nvcc)": ivf_score.load_kernel,
               f"{os.path.relpath(codec_source(), REPO)} (g++)": load_codec}
-    base_key = None
-    if opts.baseline_nbr_score:
-        src = Path(opts.baseline_nbr_score).resolve()
-        base_key = f"baseline {src} (nvcc)"
-        builds[base_key] = lambda: build.load_library(
-            src, build.BUILD_DIR / "libnbr_score_baseline.so", lambda: [build.find_nvcc(), *build.NVCC_FLAGS],
-            nbr_score.SIGNATURES)
+    base_keys = {}
+    for kind, path, signatures in (("nbr_score", opts.baseline_nbr_score, nbr_score.SIGNATURES),
+                                   ("ivf_score", opts.baseline_ivf_score, ivf_score.SIGNATURES)):
+        if path:
+            src = Path(path).resolve()
+            base_keys[kind] = f"baseline {src} (nvcc)"
+            builds[base_keys[kind]] = lambda src=src, kind=kind, signatures=signatures: build.load_library(
+                src, build.BUILD_DIR / f"lib{kind}_baseline.so", lambda: [build.find_nvcc(), *build.NVCC_FLAGS],
+                signatures)
     with ThreadPoolExecutor(len(builds)) as pool:  # every compiler at once
         futures = {name: pool.submit(timed_build, load) for name, load in builds.items()}
         log("build (in parallel): " + ", ".join(f"{name} {f.result()[0]} s" for name, f in futures.items()))
-    base_lib = futures[base_key].result()[1] if base_key else None
-    for name in ("libnbr_score.so", "libnbr_score_baseline.so"):
+    base_lib = futures[base_keys["nbr_score"]].result()[1] if "nbr_score" in base_keys else None
+    ivf_base_lib = futures[base_keys["ivf_score"]].result()[1] if "ivf_score" in base_keys else None
+    for name in ("libnbr_score.so", "libnbr_score_baseline.so", "libivf_score.so", "libivf_score_baseline.so"):
         for line in build.BUILD_LOGS.get(name, "").splitlines():
             if "Used" in line or "spill" in line or "entry function" in line:
                 log(f"{name} {line.strip()}")
@@ -771,7 +787,7 @@ def main() -> None:
     no_jax("K1 phase")
     k2_rec = k2_phase(torch, base_lib)
     no_jax("K2 phase")
-    ivf_recs = ivf_kernel_phase(torch)
+    ivf_recs = ivf_kernel_phase(torch, ivf_base_lib)
     no_jax("K3/K4/K5 phase")
     vecs, queries = bench_data()
     gt = exact_topk(torch, vecs, queries)

@@ -3,9 +3,10 @@
 Replace the Pallas TPU kernels of ``granne_tpu/ops/pallas/ivf_score.py``:
 ``ivf_score_slots`` (K3), ``ivf_score_slots_grouped`` (K4) and
 ``ivf_score_topk`` (K5).  The CUDA kernel is
-``granne_tpu_torch/csrc/ivf_score.cu`` (its header says what bounds it on
-the H100 and how the design answers that): one kernel body with the slot
-group G as a parameter, G = 1 for K3, and a top-k epilogue for K5.
+``granne_tpu_torch/csrc/ivf_score.cu`` (its header says what bounds each
+kernel on the H100 and how the design answers that): K3 and K4 are one
+tensor-core body fed by bulk copies, with the slot group G as a parameter
+(G = 1 for K3); K5 is a CUDA-core body with a top-k epilogue.
 
 Unlike the Pallas kernels, blocks may be bf16, f32 or int8 for every one of
 them (each element is rounded to bf16 as the JAX einsum does), any ``d``
@@ -15,6 +16,10 @@ never padded to a multiple of G.  ``qg`` is bf16, as the JAX callers cast it.
 Each public function runs its plain PyTorch version (``*_reference``) for
 CPU tensors and the kernel for CUDA tensors; for a CUDA tensor it launches
 the kernel or raises.  ``<function>.launches`` counts kernel launches.
+
+A launch is capture-safe: the library is loaded once per process, the
+outputs come from ``torch.empty`` (K5's from ``torch.full``), and the kernel
+goes to ``torch.cuda.current_stream()`` with no host synchronisation.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from .build import load_cuda_library
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {
+SIGNATURES = {
     "gt_ivf_score_slots": (
         _I,
         [
@@ -52,9 +57,16 @@ _SIGNATURES = {
 }
 
 
+_lib = None
+
+
 def load_kernel():
-    """Build (at first use) and load the kernels' library."""
-    return load_cuda_library("ivf_score", _SIGNATURES)
+    """Build (at first use) and load the kernels' library; once loaded, it
+    is returned at once."""
+    global _lib
+    if _lib is None:
+        _lib = load_cuda_library("ivf_score", SIGNATURES)
+    return _lib
 
 
 def _check(blocks, slot_keys, qg) -> None:
@@ -114,15 +126,20 @@ def ivf_score_topk_reference(blocks, block_ids, block_scales, slot_keys, qg, *, 
     return out_v, out_i
 
 
-def _launch_scores(blocks, slot_keys, qg, group: int):
-    lib = load_kernel()
+def _aligned(blocks, qg) -> None:
+    if blocks.data_ptr() % 16 or qg.data_ptr() % 16:
+        raise ValueError("blocks and qg must start on 16-byte boundaries")
+
+
+def launch_scores(lib, blocks, slot_keys, qg, group: int):
+    """K3 (``group`` 1) or K4 from ``lib`` on checked CUDA tensors: the
+    scores, uncounted."""
     k, L, d = blocks.shape
     S, cap, _ = qg.shape
     out = torch.empty((S, cap, L), dtype=torch.float32, device=blocks.device)
     if out.numel() == 0:
         return out
-    if blocks.data_ptr() % 16:
-        raise ValueError("blocks must start on a 16-byte boundary")
+    _aligned(blocks, qg)
     stream = torch.cuda.current_stream(blocks.device)
     err = lib.gt_ivf_score_slots(
         blocks.data_ptr(), _DTYPE_CODES[blocks.dtype], k, L, d,
@@ -143,20 +160,21 @@ def ivf_score_slots(blocks, slot_keys, qg):
     _check(blocks, slot_keys, qg)
     if blocks.device.type == "cpu":
         return ivf_score_slots_reference(blocks, slot_keys, qg)
-    out = _launch_scores(blocks, slot_keys, qg, 1)
+    out = launch_scores(load_kernel(), blocks, slot_keys, qg, 1)
     ivf_score_slots.launches += 1
     return out
 
 
 def ivf_score_slots_grouped(blocks, slot_keys, qg, *, group: int = 8):
-    """K4: K3's result with ``group`` slots per thread block, the next
-    slot's block copy in flight while the current one is scored."""
+    """K4: K3's result with ``group`` consecutive slots per thread block,
+    the next item's copy in flight while the current one is scored; K3 and
+    K4 give equal scores bit for bit."""
     _check(blocks, slot_keys, qg)
     if group < 1:
         raise ValueError(f"group must be >= 1, got {group}")
     if blocks.device.type == "cpu":
         return ivf_score_slots_reference(blocks, slot_keys, qg)
-    out = _launch_scores(blocks, slot_keys, qg, group)
+    out = launch_scores(load_kernel(), blocks, slot_keys, qg, group)
     ivf_score_slots_grouped.launches += 1
     return out
 
@@ -184,8 +202,7 @@ def ivf_score_topk(blocks, block_ids, block_scales, slot_keys, qg, *, k_out: int
     out_i = torch.full((S, cap, k_out), -1, dtype=torch.int32, device=blocks.device)
     if out_v.numel() == 0:
         return out_v, out_i
-    if blocks.data_ptr() % 16:
-        raise ValueError("blocks must start on a 16-byte boundary")
+    _aligned(blocks, qg)
     stream = torch.cuda.current_stream(blocks.device)
     err = lib.gt_ivf_score_topk(
         blocks.data_ptr(), _DTYPE_CODES[blocks.dtype], k, L, d,

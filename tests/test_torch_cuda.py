@@ -205,9 +205,11 @@ def test_tiled_cache_build_on_card_matches_cpu(cuda):
     assert overlap >= 0.99
 
 
-def _ivf_case(dev, dtype, k, L, d, S, cap, seed=0):
+def _ivf_case(dev, dtype, k, L, d, S, cap, seed=0, runs=False):
     """Unit-norm blocks (int8: their max-abs codes and inverse norms), bf16
-    queries, a padded tail of -1 ids in every block, random slot keys."""
+    queries, a padded tail of -1 ids in every block, random slot keys
+    (``runs``: sorted, so equal keys come in runs, as ``group_pairs`` gives
+    them)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     rows = distance.normalize(torch.randn((k, L, d), generator=gen, device=dev))
     scales = torch.ones((k, L), dtype=torch.float32, device=dev)
@@ -219,29 +221,36 @@ def _ivf_case(dev, dtype, k, L, d, S, cap, seed=0):
     ids = torch.arange(k * L, dtype=torch.int32, device=dev).reshape(k, L)
     ids[:, L - max(1, L // 5) :] = -1
     keys = torch.randint(0, k, (S,), generator=gen, device=dev, dtype=torch.int32)
+    if runs:
+        keys = keys.sort().values
     qg = distance.normalize(torch.randn((S, cap, d), generator=gen, device=dev)).to(torch.bfloat16)
     return blocks, ids, scales, keys, qg
 
 
 IVF_CASES = [
-    # k, L, d, S, cap, group, k_out
-    (1000, 256, 100, 1520, 32, 8, 10),  # the serve shape (200k x 100 in 1,000 blocks, nprobe 4, 4,096 queries)
-    (64, 64, 48, 37, 16, 8, 10),  # S % G != 0: a shorter tail group
-    (6, 512, 300, 9, 32, 4, 10),  # one block is 307 KB (bf16) / 614 KB (f32): row tiles
-    (8, 8, 24, 5, 8, 2, 12),  # k_out > L: (-inf, -1) padding
-    (20, 40, 33, 11, 5, 3, 7),  # odd d, cap not a multiple of 8
+    # k, L, d, S, cap, group, k_out, runs of equal keys
+    (1000, 256, 100, 1520, 32, 8, 10, False),  # the serve shape (200k x 100 in 1,000 blocks, nprobe 4, 4,096 queries)
+    (64, 64, 48, 37, 16, 8, 10, False),  # S % G != 0: a shorter tail group
+    (6, 512, 300, 9, 32, 4, 10, False),  # one block is 307 KB (bf16) / 614 KB (f32): row tiles
+    (8, 8, 24, 5, 8, 2, 12, False),  # k_out > L: (-inf, -1) padding
+    (20, 40, 33, 11, 5, 3, 7, False),  # odd d, cap not a multiple of 8
+    (50, 64, 128, 40, 17, 8, 10, False),  # d = 128: whole k steps, rows a multiple of 16 bytes; cap 17
+    (30, 37, 100, 25, 1, 8, 10, False),  # ragged L (odd: scalar stores), cap 1
+    (6, 256, 100, 45, 40, 8, 10, True),  # runs of equal keys; cap 40: two query tiles
 ]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8], ids=["bf16", "f32", "i8"])
-@pytest.mark.parametrize("case", IVF_CASES, ids=[f"k{c[0]}-L{c[1]}-d{c[2]}-S{c[3]}" for c in IVF_CASES])
+@pytest.mark.parametrize(
+    "case", IVF_CASES, ids=[f"k{c[0]}-L{c[1]}-d{c[2]}-S{c[3]}-cap{c[4]}{'-runs' if c[7] else ''}" for c in IVF_CASES]
+)
 def test_ivf_kernels_match_plain(cuda, dtype, case):
     """K3/K4 within 1e-4 of plain on the cosine scale (raw dots times the
     row's scale: int8 dots run to ~400); K5 values within 1e-4 and ids
     equal wherever the plain values are not within 1e-4 of a neighbour.
     Both sum exact bf16 products in f32; only the summation order differs."""
-    k, L, d, S, cap, group, k_out = case
-    blocks, ids, scales, keys, qg = _ivf_case(cuda, dtype, k, L, d, S, cap)
+    k, L, d, S, cap, group, k_out, runs = case
+    blocks, ids, scales, keys, qg = _ivf_case(cuda, dtype, k, L, d, S, cap, runs=runs)
     ref = K.ivf_score_slots_reference(blocks, keys, qg)
     row_scale = scales[keys.long()][:, None, :]
     before = (K.ivf_score_slots.launches, K.ivf_score_slots_grouped.launches, K.ivf_score_topk.launches)
@@ -266,6 +275,19 @@ def test_ivf_kernels_match_plain(cuda, dtype, case):
     near[..., 1:] |= gaps <= 1e-4
     near[..., :-1] |= gaps <= 1e-4
     assert torch.equal(i[~near], ri[~near])
+
+
+@pytest.mark.parametrize("group", [1, 8], ids=["k3", "k4"])
+def test_ivf_launches_capture_in_a_cuda_graph(cuda, group):
+    """K3 / K4 launches captured in one CUDA graph replay to the eager
+    scores exactly and follow new keys (some out of range, so clamped)
+    written into the captured key tensors."""
+    blocks, _, _, keys, qg = _ivf_case(cuda, torch.bfloat16, 200, 256, 100, 300, 32, seed=6)
+    fn = K.ivf_score_slots if group == 1 else K.ivf_score_slots_grouped
+    kernel = K.ivf_score_slots if group == 1 else (lambda b, kk, q: K.ivf_score_slots_grouped(b, kk, q, group=group))
+    before = fn.launches
+    _graph_replays_eager(kernel, blocks, [keys.clone() for _ in range(3)], qg)
+    assert fn.launches == before + 3 + 3 + 3
 
 
 def test_ivf_topk_ties_take_the_lower_column(cuda):
