@@ -4,7 +4,7 @@ starts and is right on an NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --baseline-nbr-score OLD.cu   # also time an earlier K1/K2
-    python3 chip_smoke.py --baseline-ivf-score OLD.cu   # also time an earlier K3/K4
+    python3 chip_smoke.py --baseline-ivf-score OLD.cu   # also time an earlier K3/K4/K5
 
 In the order it runs:
 
@@ -25,7 +25,9 @@ In the order it runs:
    d=100; 1,520 slots of 32 queries; k_out=10), with a short tail group
    (S % 8 != 0), and with blocks over 227 KB (L=512, d=300): K3/K4 within
    1e-4 on the cosine scale, K5 values within 1e-4 and ids equal except
-   at near-ties; exactly tied rows rank the lower column first.
+   at near-ties (values within 1e-4 of a neighbour in the plain ranking,
+   the first value past the k_out-th included); exactly tied rows rank the lower column first, within a
+   row tile and across the big block's row tiles.
 5. The HNSW main path through the public API: ``GranneBuilder.append`` ->
    ``build`` -> ``save_index`` (compressed) / ``save_elements`` ->
    ``load_granne`` -> bf16 copy + flat neighbor cache -> ``search_batch``,
@@ -54,6 +56,11 @@ In the order it runs:
    bf16 brute force, and an int8 index from ``build_ivf_i8_chunked`` (four
    50,000-row chunks) whose recall at nprobe 16 is at most 0.01 below the
    int8 brute-force recall.  The path must have launched K3, K4 and K5.
+   At nprobe 4, one warm ``search_batch`` per route (K4, fused K5) under
+   ``torch.profiler``: host wall, device time, busy share, device ops and
+   the five largest.  Then K3/K4/K5 timed again on the path's own slots
+   (``slot_groups`` at nprobe 4: keys in sorted runs, 1,520 slots), each
+   with its own bound (``path_keys_*`` in the kernel records).
 
 Every kernel and its plain version are timed on the same inputs in turns
 (plain, kernel, kernel, plain) two ways: ``device_ms`` / ``plain_ms``, CUDA
@@ -66,7 +73,9 @@ host loop of the same calls (what a caller pays per call, host included).
 ``nbr_score.cu`` with the same C interface is built beside this checkout's
 and its K1/K2 timed in the same graph turns (``baseline_device_ms``); with
 ``--baseline-ivf-score`` the same for an earlier ``ivf_score.cu`` and its
-K3/K4 at the serve shape.  A baseline that fails to build fails the run.
+K3/K4/K5 at the serve shape and on the path's slots (an earlier K5 as its
+wrapper called it, after two ``torch.full`` fills of its outputs:
+``baseline_with_fills``).  A baseline that fails to build fails the run.
 Each kernel's record carries the bound for its timed work (the larger of
 bytes over 3.35 TB/s and bf16 operations over 989 TFLOP/s, the H100 SXM
 peaks) and ``library_ms`` null: no single PyTorch call gathers rows by id
@@ -117,6 +126,7 @@ IVF_CASES = (
     ("big-block", 6, 512, 300, 40),  # 307 KB (bf16) / 614 KB (f32) blocks
 )
 IVF_SLOT_CAP, IVF_GROUP = 32, 8
+PATH_NPROBE = 4  # the IVF path's slots for K3-K5 timed on its own keys (the first nprobe reaching 0.95)
 
 
 def log(msg: str) -> None:
@@ -369,9 +379,49 @@ def ivf_case(torch, dtype, k, L, d, S, seed):
     return blocks, ids, scales, keys, qg
 
 
+def ivf_times(torch, inputs, base_lib) -> dict:
+    """K3/K4/K5 and their plain versions timed in turns on ``inputs``
+    (blocks, ids, scales, keys, qg), each with its bound; with ``base_lib``
+    an earlier build's K3/K4/K5 too (its K5 as its wrapper called it, after
+    two ``torch.full`` fills of the outputs).  Returns {kernel: record}."""
+    from granne_tpu_torch.ops.kernels import ivf_score as KS
+
+    blocks, _, _, keys, qg = inputs
+    L, d = blocks.shape[1:]
+    S = keys.shape[0]
+    args = [inputs] * IVF_TIMED
+    pairs = {
+        "ivf_score_slots": (lambda b, _i, _s, kk, q: KS.ivf_score_slots(b, kk, q),
+                            lambda b, _i, _s, kk, q: KS.ivf_score_slots_reference(b, kk, q)),
+        "ivf_score_slots_grouped": (
+            lambda b, _i, _s, kk, q: KS.ivf_score_slots_grouped(b, kk, q, group=IVF_GROUP),
+            lambda b, _i, _s, kk, q: KS.ivf_score_slots_reference(b, kk, q)),
+        "ivf_score_topk": (lambda *a: KS.ivf_score_topk(*a, k_out=K),
+                           lambda *a: KS.ivf_score_topk_reference(*a, k_out=K)),
+    }
+    # each distinct block read once (K5 also its ids and scales), the query
+    # groups and keys read once, the outputs written once
+    blocks_read = int(torch.unique(keys).numel()) * L
+    q_bytes = S * qg.shape[1] * d * 2 + S * 4
+    flops = 2.0 * S * qg.shape[1] * L * d
+    slot_bound = bound(blocks_read * d * blocks.element_size() + q_bytes + S * qg.shape[1] * L * 4, flops)
+    topk_bound = bound(blocks_read * (d * blocks.element_size() + 8) + q_bytes + S * qg.shape[1] * K * 8, flops)
+    base = {}
+    if base_lib is not None:
+        base = {"ivf_score_slots": lambda b, _i, _s, kk, q: KS.launch_scores(base_lib, b, kk, q, 1),
+                "ivf_score_slots_grouped": lambda b, _i, _s, kk, q: KS.launch_scores(base_lib, b, kk, q, IVF_GROUP),
+                "ivf_score_topk": lambda b, i, s, kk, q: KS.launch_topk(base_lib, b, i, s, kk, q, K, prefill=True)}
+    out = {}
+    for kname, (kernel, plain) in pairs.items():
+        out[kname] = {**timed_pair(torch, kernel, plain, args, base.get(kname)),
+                      **(topk_bound if kname == "ivf_score_topk" else slot_bound),
+                      "distinct_blocks": blocks_read // L}
+    return out
+
+
 def ivf_kernel_phase(torch, base_lib):
     """K3/K4/K5 vs their plain versions (and, with ``base_lib``, an earlier
-    build's K3/K4 timed in the same turns).  Returns {kernel: record}."""
+    build's K3/K4/K5 timed in the same turns).  Returns {kernel: record}."""
     from granne_tpu_torch.ops.kernels import ivf_score as KS
 
     recs = {n: {"max_abs_err": 0.0} for n in ("ivf_score_slots", "ivf_score_slots_grouped", "ivf_score_topk")}
@@ -397,55 +447,36 @@ def ivf_kernel_phase(torch, base_lib):
             if not torch.equal(torch.isfinite(v), fin) or not bool((i[~fin] == -1).all()):
                 fail(f"ivf_score_topk -inf/-1 padding differs from the plain version ({what})")
             err = float((v[fin] - rv[fin]).abs().max())
-            gaps = (rv[..., 1:] - rv[..., :-1]).abs() <= IVF_ATOL
-            near = torch.zeros_like(fin)
+            # neighbours in plain's ranking, the first value past the last column included
+            rv1 = KS.ivf_score_topk_reference(blocks, ids, scales, keys, qg, k_out=K + 1)[0]
+            gaps = (rv1[..., 1:] - rv1[..., :-1]).abs() <= IVF_ATOL
+            near = torch.zeros_like(rv1, dtype=torch.bool)
             near[..., 1:] |= gaps
             near[..., :-1] |= gaps
+            near = near[..., :K]
             if err > IVF_ATOL or not torch.equal(i[~near], ri[~near]):
                 fail(f"ivf_score_topk differs from the plain version ({what}): value err {err}")
             recs["ivf_score_topk"]["max_abs_err"] = max(recs["ivf_score_topk"]["max_abs_err"], err)
             times = {}
             if name == "serve":
-                args = [(blocks, ids, scales, keys, qg)] * IVF_TIMED
-                pairs = {
-                    "ivf_score_slots": (lambda b, _i, _s, kk, q: KS.ivf_score_slots(b, kk, q),
-                                        lambda b, _i, _s, kk, q: KS.ivf_score_slots_reference(b, kk, q)),
-                    "ivf_score_slots_grouped": (
-                        lambda b, _i, _s, kk, q: KS.ivf_score_slots_grouped(b, kk, q, group=IVF_GROUP),
-                        lambda b, _i, _s, kk, q: KS.ivf_score_slots_reference(b, kk, q)),
-                    "ivf_score_topk": (lambda *a: KS.ivf_score_topk(*a, k_out=K),
-                                       lambda *a: KS.ivf_score_topk_reference(*a, k_out=K)),
-                }
-                # each distinct block read once (K5 also its ids and scales),
-                # the query groups and keys read once, the outputs written once
-                blocks_read = int(torch.unique(keys).numel()) * L
-                q_bytes = S * IVF_SLOT_CAP * d * 2 + S * 4
-                flops = 2.0 * S * IVF_SLOT_CAP * L * d
-                slot_bound = bound(blocks_read * d * blocks.element_size() + q_bytes + S * IVF_SLOT_CAP * L * 4, flops)
-                topk_bound = bound(blocks_read * (d * blocks.element_size() + 8) + q_bytes + S * IVF_SLOT_CAP * K * 8,
-                                   flops)
-                base = {}
-                if base_lib is not None:
-                    base = {"ivf_score_slots": lambda b, _i, _s, kk, q: KS.launch_scores(base_lib, b, kk, q, 1),
-                            "ivf_score_slots_grouped": lambda b, _i, _s, kk, q: KS.launch_scores(
-                                base_lib, b, kk, q, IVF_GROUP)}
-                for kname, (kernel, plain) in pairs.items():
-                    times[kname] = timed_pair(torch, kernel, plain, args, base.get(kname))
-                    if dtype == torch.bfloat16:  # the main path's block type
-                        recs[kname].update(**times[kname],
-                                           **(topk_bound if kname == "ivf_score_topk" else slot_bound))
+                times = ivf_times(torch, (blocks, ids, scales, keys, qg), base_lib)
+                if dtype == torch.bfloat16:  # the main path's block type
+                    for kname, t in times.items():
+                        recs[kname].update(**t)
             log(f"K3/K4/K5 {what} S={S}: errs k3/k4/k5 = {[recs[n]['max_abs_err'] for n in recs]} times = {times}")
-            del blocks, ids, scales, keys, qg, ref, k3, k4, v, i, rv, ri
-    # exactly duplicated block rows tie in any summation order: the lower column first
-    blocks, ids, scales, keys, qg = ivf_case(torch, torch.bfloat16, 4, 64, 40, 6, 7)
-    blocks[2, 10] = blocks[2, 3]
-    blocks[2, 30] = blocks[2, 3]
-    keys[:] = 2
-    qg[:, 0] = blocks[2, 3]
-    _, i = KS.ivf_score_topk(blocks, ids, scales, keys, qg, k_out=5)
-    torch.cuda.synchronize()
-    if not torch.equal(i[:, 0, :3], ids[2, [3, 10, 30]].expand(6, 3)):
-        fail(f"ivf_score_topk broke an exact tie away from the lower column: {i[0, 0].tolist()}")
+            del blocks, ids, scales, keys, qg, ref, k3, k4, v, i, rv, ri, rv1
+    # exactly duplicated block rows tie in any summation order: the lower
+    # column first, within a row tile and across the big block's row tiles
+    for k, L, d, S, cols, k_out in ((4, 64, 40, 6, [3, 10, 30], 5), (6, 512, 300, 9, [5, 95, 96, 300, 401], 10)):
+        blocks, ids, scales, keys, qg = ivf_case(torch, torch.bfloat16, k, L, d, S, 7)
+        for c in cols[1:]:
+            blocks[2, c] = blocks[2, cols[0]]
+        keys[:] = 2
+        qg[:, 0] = blocks[2, cols[0]]
+        _, i = KS.ivf_score_topk(blocks, ids, scales, keys, qg, k_out=k_out)
+        torch.cuda.synchronize()
+        if not torch.equal(i[:, 0, : len(cols)], ids[2, cols].expand(S, len(cols))):
+            fail(f"ivf_score_topk broke an exact tie away from the lower column (L={L}): {i[0, 0].tolist()}")
     torch.cuda.empty_cache()
     return recs
 
@@ -643,6 +674,7 @@ def timed_search(torch, fn):
 def ivf_path(torch, g, vecs, queries, gt):
     """The IVF and brute-force engines through the public API.  Returns the
     K3/K4/K5 launch counts of this path."""
+    from granne_tpu_torch.index.ivf import slot_count, slot_groups
     from granne_tpu_torch.index.ivf_big import build_ivf_i8_chunked
     from granne_tpu_torch.ops import distance
     from granne_tpu_torch.ops.kernels import ivf_score as KS
@@ -684,6 +716,11 @@ def ivf_path(torch, g, vecs, queries, gt):
                     fail(f"the IVF {route} route agrees {agree} < {ROUTE_AGREEMENT} with the K4 route")
     if chosen is None:
         fail(f"IVF recall@{K} stayed below {TARGET_RECALL} for every nprobe in {NPROBES}")
+    ivf_profile(torch, ivf, queries, PATH_NPROBE)
+    q = distance.normalize(torch.as_tensor(queries, device="cuda"))
+    S = slot_count(ivf.k, len(queries), PATH_NPROBE, IVF_SLOT_CAP)
+    keys, qg = slot_groups(q, ivf.centroids, ivf.blocks, nprobe=PATH_NPROBE, group_cap=IVF_SLOT_CAP, num_slots=S)[:2]
+    path_inputs = (ivf.blocks, ivf.block_ids, ivf.block_scales, keys, qg)
     del ivf
 
     brute = g.BruteForceIndex.build(vecs, device="cuda")
@@ -715,7 +752,38 @@ def ivf_path(torch, g, vecs, queries, gt):
     for name, count in launches.items():
         if count <= 0:
             fail(f"the IVF path never launched {name}")
-    return launches
+    return launches, path_inputs
+
+
+def ivf_profile(torch, ivf, queries, nprobe):
+    """One warm ``search_batch`` of every query per route (K4, fused K5)
+    under ``torch.profiler``: host wall (a second, unprofiled call),
+    summed device time of the kernels and copies, busy share (that sum over
+    the host wall), their count and the five largest by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for route, kw in (("k4", {}), ("k5_fused", {"fused_topk": True})):
+        def run():
+            ivf.search_batch(queries, K, nprobe=nprobe, **kw)
+            torch.cuda.synchronize()
+
+        run()
+        t = time.perf_counter()
+        run()
+        wall = (time.perf_counter() - t) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+        ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_name = {}
+        for e in ops:
+            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3
+        device = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        if not ops:
+            log(f"ivf profile {route}: the profiler saw no device ops (device time not measured); host_wall_ms={wall}")
+            continue
+        log(f"ivf profile {route}: nprobe={nprobe} batch={len(queries)} host_wall_ms={wall} device_ms={device} "
+            f"busy={device / wall} device_ops={len(ops)} top5={top}")
 
 
 def main() -> None:
@@ -729,7 +797,7 @@ def main() -> None:
                          "and its K1/K2 timed the same way (baseline_device_ms)")
     ap.add_argument("--baseline-ivf-score", metavar="FILE.cu",
                     help="an earlier ivf_score.cu with the same C interface: built beside this checkout's "
-                         "and its K3/K4 timed the same way (baseline_device_ms)")
+                         "and its K3/K4/K5 timed the same way (baseline_device_ms; K5 with its two fills)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs on the card only")
@@ -797,8 +865,11 @@ def main() -> None:
     no_jax("tiled cache-fed path")
     flat_cache_path(torch, g, vecs, queries)
     no_jax("flat cache-fed path")
-    ivf_launches = ivf_path(torch, g, vecs, queries, gt)
+    ivf_launches, path_inputs = ivf_path(torch, g, vecs, queries, gt)
     no_jax("IVF path")
+    path_times = ivf_times(torch, path_inputs, ivf_base_lib)
+    log(f"K3/K4/K5 on the IVF path's own slots (nprobe {PATH_NPROBE}, S={path_inputs[3].shape[0]}): {path_times}")
+    del path_inputs
 
     def record(name, source, replaces, n_launches, r):
         return {
@@ -807,6 +878,10 @@ def main() -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "device_ms": r["device_ms"], "eager_ms": r["eager_ms"], "plain_eager_ms": r["plain_eager_ms"],
             **({"baseline_device_ms": r["baseline_device_ms"]} if "baseline_device_ms" in r else {}),
+            **({"baseline_with_fills": True} if name == "ivf_score_topk" and "baseline_device_ms" in r else {}),
+            **({f"path_keys_{key}": path_times[name][key] for key in ("device_ms", "baseline_device_ms", "bound_ms",
+                                                                    "distinct_blocks") if key in path_times[name]}
+               if name in path_times else {}),
         }
 
     nbr_src = "granne_tpu_torch/csrc/nbr_score.cu"

@@ -1,4 +1,5 @@
-// IVF slot scoring (K3, K4) and fused slot scoring + per-row top-k (K5).
+// IVF slot scoring (K3, K4) and fused slot scoring + per-row top-k (K5),
+// one kernel body.
 //
 // Replaces the Pallas TPU kernels in granne_tpu/ops/pallas/ivf_score.py:
 //   K3 ivf_score_slots          (_kernel)          one slot per program
@@ -70,24 +71,56 @@
 //   stored.  Every output's sum runs over the same k steps whatever G is,
 //   so K3 and K4 agree bit for bit.
 // * Stores: a quad of lanes writes 32 contiguous bytes of a score row
-//   (float2 each when L is even).
+//   (float2 each when L is even).  K5 hands the same accumulators to its
+//   own epilogue (below).
 // * A lean, capture-safe launch, as in nbr_score.cu: the device's limits
 //   are read and every kernel's shared-memory limit set once per device,
 //   cudaSetDevice only when the current device differs, no allocation.
 //
-// -Xptxas -v (sm_90a, CUDA 12.8): 80 registers for each K3/K4 instance, no
-// spills (chip_smoke.py prints the report).
-//
 // ---------------------------------------------------------------------------
-// K5 (ivf_score_kernel, the PR 2 body): one slot per thread block, its row
-// tiles copied with 16-byte cp.async into two buffers, scored on the CUDA
-// cores (each thread one block row against 8 queries, fmaf).  It keeps the
-// [query tile, L] score tile in shared memory, applies block_scales and the
-// block_ids < 0 mask, then one warp per query row runs K' = min(k_out, L)
-// rounds of warp argmax: the largest value, and among equal values the
-// smallest column, as ivf_score.py:177-182 picks.  Only [cap, K'] values and
-// element ids are written (ids -1 where the value is -inf).  Bound by
-// shared-memory loads (one query value a fmaf), not by HBM.
+// K5: the same body (slot_score_kernel with a top-k output kind), one slot
+// per thread block as the Pallas kernel has one per grid step.
+//
+// What bounds it on the H100.  At the serve shape (k_out 10) a slot reads
+// what a K3 slot reads plus its block's ids and scales (2 KB) and writes only
+// 32 x 10 values and ids (2.5 KB): ~95 MB in all, 28 us at 3.35 TB/s, against
+// K3's 137 MB.  The [cap, L] scores never leave the SM, so the time is each
+// block's chain per item: the staging pass and scoring (as for K3/K4), then
+// the top-k merge, whose shuffle networks run one after another within a
+// warp (PERF.md §6: clock64 builds put most of an item there and in the
+// staging pass).
+//
+// * Copies, staging and scoring as K3/K4.  Each item's stage also takes the
+//   row tile's block_ids and block_scales (L * 4 bytes each per block, bulk
+//   copied with the rows), moved out of the stage with the staging pass so
+//   the stage can refill at once.
+// * Row tiles of at most 128 rows (kMaxLT), so a warp scores at most one
+//   unit and holds its accumulators across a barrier: once every warp has
+//   read the converted block tile, the accumulators times the row's scale,
+//   -inf where the row's id is negative, go into a [query tile, LT] f32
+//   score tile over it (pitch 8 mod 32 floats: conflict-free float2 stores).
+//   So the plan keeps two blocks an SM at LT 128 (serve: ~104 KB a block): a
+//   whole [32, L] f32 tile beside K3/K4's stages would not fit.
+// * A running top-K' per query row across row tiles (a 614 KB block is
+//   scored in many): a warp owns four query rows, and with K' <= 16 a row's
+//   list lives in registers, entry t in lane t, sorted best first.  A tile's
+//   candidates are its scores above the list's K'-th; for an empty list,
+//   those at or above the K'-th largest of the lanes' maxima (a values-only
+//   bitonic sort), a bound K' scores of the tile reach, so a random tile of
+//   128 gives ~K' of them.  They are packed in column order beside the list,
+//   32 - K' at a time, and a bitonic sort of 32 (value, column) pairs, the
+//   larger value and then the lower column first, makes the new list: among
+//   equal values the lower column comes first, as ivf_score.py:177-182
+//   picks, across tile boundaries too.  The four rows' networks interleave.
+//   Ids are read for the K' winners only, at the end.  With K' > 16 the list
+//   lives in the row's own output columns, and each candidate is inserted
+//   after every entry of equal value, the entries below it moving down a
+//   chunk of 32 at a time (the slower path, for large k_out).
+// * Every one of the k_out output columns is written, (-inf, -1) past K' and
+//   wherever the value is -inf, so the outputs need no fill.
+//
+// -Xptxas -v (sm_90a, CUDA 12.8): 116-121 registers for each K5 instance, no
+// spills; K3/K4 unchanged at 80 (chip_smoke.py prints the report).
 
 #include <cstdint>
 #include <mutex>
@@ -96,196 +129,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kWarp = 32;
-constexpr int kQ = 8;  // queries per thread (accumulators)
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
 
-__device__ __forceinline__ float bf16_bits_to_float(uint16_t bits) {
-  return __uint_as_float(static_cast<uint32_t>(bits) << 16);
-}
-
-// A block element rounded to bf16, as a float.
-template <typename T>
-__device__ __forceinline__ float to_bf16_value(T v);
-template <>
-__device__ __forceinline__ float to_bf16_value<uint16_t>(uint16_t v) {
-  return bf16_bits_to_float(v);
-}
-template <>
-__device__ __forceinline__ float to_bf16_value<float>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-template <>
-__device__ __forceinline__ float to_bf16_value<int8_t>(int8_t v) {
-  return static_cast<float>(v);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_0() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-struct Args {
-  const unsigned char* blocks;  // [k, L, d] elements of `esize` bytes
-  long long k_blocks;
-  int L, d;
-  const int32_t* slot_keys;  // [S]
-  int S, G;
-  const uint16_t* qg;  // bf16 [S, cap, d]
-  int cap;
-  float* out;  // [S, cap, L] (scoring)
-  const int32_t* block_ids;  // [k, L] (top-k)
-  const float* block_scales;  // [k, L] (top-k)
-  int kp, k_out;
-  float* out_v;  // [S, cap, k_out] (top-k)
-  int32_t* out_i;
-  // the tile plan (make_plan)
-  int LT;    // rows per tile
-  int CQ;    // queries per tile (a multiple of kQ)
-  int nbuf;  // tile buffers (1 or 2)
-  size_t tile_bytes;
-};
-
-__device__ __forceinline__ long long slot_key(const Args& a, int s) {
-  long long key = a.slot_keys[s];
-  return key < 0 ? 0 : (key >= a.k_blocks ? a.k_blocks - 1 : key);
-}
-
-// Start copying row tile `lt` of slot `s`'s block into `buf`, from the
-// 16-byte boundary at or below the tile's first byte; the compute side
-// recomputes the same offsets.
-template <typename T>
-__device__ void issue_tile(const Args& a, int s, int lt, unsigned char* buf) {
-  const long long key = slot_key(a, s);
-  const int row0 = lt * a.LT;
-  const int rows = min(a.LT, a.L - row0);
-  const long long start = ((key * a.L + row0) * a.d) * static_cast<long long>(sizeof(T));
-  const long long len = static_cast<long long>(rows) * a.d * sizeof(T);
-  const long long total = a.k_blocks * a.L * a.d * static_cast<long long>(sizeof(T));
-  const long long a0 = start & ~15LL;
-  const int chunks = static_cast<int>((start - a0 + len + 15) / 16);
-  for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
-    const long long g = a0 + 16LL * c;
-    if (g + 16 <= total) {
-      cp_async16(buf + 16 * c, a.blocks + g);
-    } else {  // the tensor's last, ragged 16 bytes: plain loads
-      for (long long b = g; b < total; ++b) buf[16 * c + (b - g)] = a.blocks[b];
-    }
-  }
-}
-
-template <typename T, bool kTopk>
-__global__ void __launch_bounds__(kThreads) ivf_score_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* bufs = smem;
-  float* qs = reinterpret_cast<float*>(smem + a.nbuf * a.tile_bytes);  // [CQ, d]
-  float* sc = qs + static_cast<size_t>(a.CQ) * a.d;                   // [CQ, L] (top-k)
-
-  const int s0 = blockIdx.x * a.G;
-  const int ns = min(a.G, a.S - s0);
-  const int nq = (a.cap + a.CQ - 1) / a.CQ;
-  const int nl = (a.L + a.LT - 1) / a.LT;
-  const int items = ns * nq * nl;
-  const int tid = threadIdx.x;
-
-  issue_tile<T>(a, s0, 0, bufs);
-  cp_async_commit();
-  for (int it = 0; it < items; ++it) {
-    const int lt = it % nl;
-    const int qt = (it / nl) % nq;
-    const int s = s0 + it / (nl * nq);
-    if (it + 1 < items) {
-      const int nxt = it + 1;
-      issue_tile<T>(a, s0 + nxt / (nl * nq), nxt % nl, bufs + (nxt % a.nbuf) * a.tile_bytes);
-      cp_async_commit();
-      cp_async_wait_1();
-    } else {
-      cp_async_wait_0();
-    }
-    const int c0 = qt * a.CQ;
-    const int nqr = min(a.CQ, a.cap - c0);
-    if (lt == 0) {  // a new query tile: bf16 -> f32 into shared memory
-      const uint16_t* src = a.qg + (static_cast<long long>(s) * a.cap + c0) * a.d;
-      for (int i = tid; i < nqr * a.d; i += blockDim.x) qs[i] = bf16_bits_to_float(src[i]);
-    }
-    __syncthreads();
-
-    const long long key = slot_key(a, s);
-    const int row0 = lt * a.LT;
-    const int rows = min(a.LT, a.L - row0);
-    const long long start = ((key * a.L + row0) * a.d) * static_cast<long long>(sizeof(T));
-    const T* tile = reinterpret_cast<const T*>(bufs + (it % a.nbuf) * a.tile_bytes + (start & 15LL));
-    const int qgroups = (nqr + kQ - 1) / kQ;
-    for (int u = tid; u < rows * qgroups; u += blockDim.x) {
-      const int r = u % rows;  // neighbouring threads: neighbouring rows, the same queries
-      const int cq = (u / rows) * kQ;
-      const T* row = tile + static_cast<long long>(r) * a.d;
-      const float* qrow = qs + static_cast<long long>(cq) * a.d;
-      float acc[kQ];
-#pragma unroll
-      for (int i = 0; i < kQ; ++i) acc[i] = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < a.d; ++j) {
-        const float b = to_bf16_value<T>(row[j]);
-#pragma unroll
-        for (int i = 0; i < kQ; ++i) acc[i] = fmaf(b, qrow[i * a.d + j], acc[i]);
-      }
-      const int l = row0 + r;
-      if (kTopk) {
-        const long long col = key * a.L + l;
-        const float scale = a.block_scales[col];
-        const bool live = a.block_ids[col] >= 0;
-#pragma unroll
-        for (int i = 0; i < kQ; ++i)
-          if (cq + i < nqr) sc[static_cast<long long>(cq + i) * a.L + l] = live ? acc[i] * scale : neg_inf();
-      } else {
-        float* o = a.out + (static_cast<long long>(s) * a.cap + c0 + cq) * a.L + l;
-#pragma unroll
-        for (int i = 0; i < kQ; ++i)
-          if (cq + i < nqr) o[static_cast<long long>(i) * a.L] = acc[i];
-      }
-    }
-    __syncthreads();  // the tile buffer and qs are free again
-
-    if (kTopk && lt == nl - 1) {  // the query tile's full [nqr, L] scores are in `sc`
-      const int warp = tid / kWarp, lane = tid % kWarp;
-      for (int r = warp; r < nqr; r += blockDim.x / kWarp) {
-        float* srow = sc + static_cast<long long>(r) * a.L;
-        const long long o = (static_cast<long long>(s) * a.cap + c0 + r) * a.k_out;
-        for (int t = 0; t < a.kp; ++t) {
-          float bv = neg_inf();
-          int bi = 0x7fffffff;  // stays so only if every value is NaN
-          for (int l = lane; l < a.L; l += kWarp) {
-            const float v = srow[l];
-            if (v > bv || (v == bv && l < bi)) { bv = v; bi = l; }
-          }
-#pragma unroll
-          for (int off = kWarp / 2; off > 0; off >>= 1) {
-            const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-            const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-            if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
-          }
-          if (lane == 0) {
-            const bool hit = bi < a.L && bv != neg_inf();
-            a.out_v[o + t] = bv;
-            a.out_i[o + t] = hit ? a.block_ids[key * a.L + bi] : -1;
-            if (bi < a.L) srow[bi] = neg_inf();
-          }
-          __syncwarp();
-        }
-      }
-      __syncthreads();  // `sc` is free again
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K3/K4: the tensor-core slot scorer.
+// The slot scorer (K3, K4, K5).
 
 constexpr int kSlotWarps = 8;
 constexpr int kSlotThreads = kSlotWarps * kWarp;
@@ -296,6 +146,15 @@ constexpr int kStages = 2;
 constexpr int kBarBytes = 128;   // the mbarriers, ahead of the stages
 constexpr int kSpanSlack = 30;   // a span copied from the granule below its start, rounded up to 16
 constexpr int kMaxDevices = 64;
+constexpr int kRowsPerWarp = kQT / kSlotWarps;  // K5: query rows whose top-K' a warp keeps
+constexpr int kRegK = 16;                       // K5: the longest top-K' kept in registers, an entry a lane
+constexpr int kMaxLT = 4 * kUnit;               // K5: the longest row tile (a warp scores one unit at most)
+constexpr int kMaxJ = kMaxLT / kWarp;           // K5: a row tile's scores of one query row per lane
+
+// What a slot_score_kernel instance writes.
+constexpr int kScores = 0;      // K3/K4: the raw scores
+constexpr int kTopkRegs = 1;    // K5 with K' <= kRegK: each row's running top-K' in registers, an entry a lane
+constexpr int kTopkGlobal = 2;  // K5 with K' > kRegK: each row's running top-K' in its own output row
 
 __host__ __device__ constexpr long long pad_to(long long v, long long to) { return (v + to - 1) / to * to; }
 
@@ -307,13 +166,23 @@ struct SlotArgs {
   int S, G;
   const unsigned char* qg;  // bf16 [S, cap, d]
   int cap;
-  float* out;  // f32 [S, cap, L]
+  float* out;  // K3/K4: f32 [S, cap, L]
+  // K5 (kp > 0)
+  const int32_t* block_ids;   // [k, L], -1 masks a row
+  const float* block_scales;  // [k, L]
+  int kp, k_out;              // K' = min(k_out, L) kept of each query row; k_out columns written
+  float* out_v;               // f32 [S, cap, k_out]
+  int32_t* out_i;             // int32 [S, cap, k_out]
   // the plan (plan_slots)
   int LT;          // block rows a tile: L, or a multiple of kUnit
   int dp;          // lanes between two converted rows: pad16(d) + 8
   int nbuf;        // stages (1 or 2)
   int blk_area;    // bytes of a stage that take the block tile's span
-  int stage_bytes; // blk_area + the query tile's span area
+  int qry_area;    // bytes of a stage that take the query tile's span
+  int col_area;    // K5: bytes of a stage for each of the tile's ids and scales; 0 for K3/K4
+  int sp;          // K5: floats between two rows of the score tile (8 mod 32); 0 for K3/K4
+  int bc_area;     // bytes from the converted block tile to the converted query tile
+  int stage_bytes; // blk_area + qry_area + 2 col_area
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -417,8 +286,10 @@ __device__ __forceinline__ long long clamp_key(long long key, long long k) {
   return key < 0 ? 0 : (key >= k ? k - 1 : key);
 }
 
-// One thread: arm `bar` and start the copies of item `m` (block row tile,
-// and with the first row tile its query tile) into `stage`.
+// One thread: start the copies of item `m` into `stage` (the block row tile,
+// with the first row tile its query tile, and for K5 the tile's ids and
+// scales) and arm `bar` with their bytes.  The plain tail loads come first,
+// so the stage is whole once the bulk bytes have landed.
 template <typename T>
 __device__ void issue_item(const SlotArgs& a, const Item& m, long long key, unsigned char* stage, uint64_t* bar) {
   constexpr long long es = sizeof(T);
@@ -426,18 +297,30 @@ __device__ void issue_item(const SlotArgs& a, const Item& m, long long key, unsi
   const int rows = min(a.LT, a.L - row0);
   const Span blk = span_of(a.blocks, a.k_blocks * a.L * a.d * es, (key * a.L + row0) * a.d * es,
                            static_cast<long long>(rows) * a.d * es);
-  Span q = {nullptr, 0u, nullptr, nullptr};
+  Span q = {nullptr, 0u, nullptr, nullptr}, ids = q, scl = q;
   if (m.lt == 0) {
     const int c0 = m.qt * kQT;
     const int nqr = min(kQT, a.cap - c0);
     q = span_of(a.qg, static_cast<long long>(a.S) * a.cap * a.d * 2, (static_cast<long long>(m.s) * a.cap + c0) * a.d * 2,
                 static_cast<long long>(nqr) * a.d * 2);
   }
-  mbar_arrive_expect_tx(bar, blk.bulk + q.bulk);
-  if (blk.bulk) bulk_copy(stage, blk.from, blk.bulk, bar);
-  if (q.bulk) bulk_copy(stage + a.blk_area, q.from, q.bulk, bar);
+  if (a.kp > 0) {
+    const long long total = a.k_blocks * a.L * 4, start = (key * a.L + row0) * 4;
+    ids = span_of(reinterpret_cast<const unsigned char*>(a.block_ids), total, start, rows * 4LL);
+    scl = span_of(reinterpret_cast<const unsigned char*>(a.block_scales), total, start, rows * 4LL);
+  }
+  unsigned char* qst = stage + a.blk_area;
+  unsigned char* ist = qst + a.qry_area;
+  unsigned char* sst = ist + a.col_area;
   load_tail(stage, blk);
-  if (m.lt == 0) load_tail(stage + a.blk_area, q);
+  load_tail(qst, q);
+  load_tail(ist, ids);
+  load_tail(sst, scl);
+  mbar_arrive_expect_tx(bar, blk.bulk + q.bulk + ids.bulk + scl.bulk);
+  if (blk.bulk) bulk_copy(stage, blk.from, blk.bulk, bar);
+  if (q.bulk) bulk_copy(qst, q.from, q.bulk, bar);
+  if (ids.bulk) bulk_copy(ist, ids.from, ids.bulk, bar);
+  if (scl.bulk) bulk_copy(sst, scl.from, scl.bulk, bar);
 }
 
 __device__ __forceinline__ uint32_t bf16_bits(uint16_t v) { return v; }
@@ -496,15 +379,15 @@ __device__ __forceinline__ void convert_rows(const unsigned char* src, int rows,
   }
 }
 
-// All warps: the scores of `nqr` converted queries at A against `rows`
-// converted block rows at B, into out[c, l] = out + c * L + l.  A warp takes
-// kUnit rows at a time (four n8 tiles) against all kQT queries (two m16
-// tiles); rows and queries past the live ones read the last live one and
-// are not stored.  pairs: every score row starts on an 8-byte boundary.
-__device__ __forceinline__ void score_tile(const uint16_t* A, int nqr, const uint16_t* B, int rows, int d, int dp,
-                                           float* out, int L, bool pairs) {
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int g = lane >> 2, c = lane & 3;
+constexpr int kNT = kUnit / 8;  // n8 tiles a unit, two an ldmatrix
+
+// One warp: the scores of `nqr` converted queries at A against the kUnit
+// converted block rows from n0 at B (`rows` live), into acc: two m16 tiles
+// of queries by kNT n8 tiles of rows, k steps of 16 in order.  Rows and
+// queries past the live ones read the last live one and are not stored.
+__device__ __forceinline__ void mma_unit(const uint16_t* A, int nqr, const uint16_t* B, int n0, int rows, int d, int dp,
+                                         float (&acc)[2][kNT][4]) {
+  const int lane = threadIdx.x % kWarp;
   const int kend = (d + 15) / 16 * 16;
   // ldmatrix addressing: A matrices (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15);
   // B matrices (n 0-7, k 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15): b0, b1 of two n8 tiles
@@ -513,60 +396,304 @@ __device__ __forceinline__ void score_tile(const uint16_t* A, int nqr, const uin
   const uint16_t* pa[2];
 #pragma unroll
   for (int t = 0; t < 2; ++t) pa[t] = A + min(16 * t + arow, nqr - 1) * dp + acol;
-  constexpr int NT = kUnit / 8;  // n8 tiles a unit, two an ldmatrix
-  for (int n0 = warp * kUnit; n0 < rows; n0 += kSlotWarps * kUnit) {
-    const uint16_t* pb[NT / 2];
+  const uint16_t* pb[kNT / 2];
 #pragma unroll
-    for (int t = 0; t < NT / 2; ++t) pb[t] = B + min(n0 + 16 * t + brow, rows - 1) * dp + bcol;
-    float acc[2][NT][4] = {};
-    for (int k = 0; k < kend; k += 16) {
-      uint32_t af[2][4], bf[NT / 2][4];
+  for (int t = 0; t < kNT / 2; ++t) pb[t] = B + min(n0 + 16 * t + brow, rows - 1) * dp + bcol;
 #pragma unroll
-      for (int t = 0; t < 2; ++t) ldmatrix_x4(af[t], pa[t] + k);
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int t = 0; t < NT / 2; ++t) ldmatrix_x4(bf[t], pb[t] + k);
+    for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  for (int k = 0; k < kend; k += 16) {
+    uint32_t af[2][4], bf[kNT / 2][4];
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], af[mt], bf[nt / 2][(nt % 2) * 2], bf[nt / 2][(nt % 2) * 2 + 1]);
-      }
-    }
+    for (int t = 0; t < 2; ++t) ldmatrix_x4(af[t], pa[t] + k);
+#pragma unroll
+    for (int t = 0; t < kNT / 2; ++t) ldmatrix_x4(bf[t], pb[t] + k);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int q = 16 * mt + 8 * h + g;
-        if (q >= nqr) continue;
-        float* orow = out + static_cast<long long>(q) * L;
+      for (int nt = 0; nt < kNT; ++nt) mma_bf16(acc[mt][nt], af[mt], bf[nt / 2][(nt % 2) * 2], bf[nt / 2][(nt % 2) * 2 + 1]);
+    }
+  }
+}
+
+// One warp (K3/K4): a unit's scores into out[q, l] = out + q * L + l; a
+// quad of lanes writes 32 contiguous bytes of a score row (float2 each when
+// every score row starts on an 8-byte boundary: `pairs`).
+__device__ __forceinline__ void store_unit(const float (&acc)[2][kNT][4], int nqr, int n0, int rows, float* out, int L,
+                                           bool pairs) {
+  const int lane = threadIdx.x % kWarp;
+  const int g = lane >> 2, c = lane & 3;
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int l = n0 + 8 * nt + 2 * c;
-          const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
-          if (pairs && l + 1 < rows) {
-            *reinterpret_cast<float2*>(orow + l) = make_float2(v0, v1);
-          } else {
-            if (l < rows) orow[l] = v0;
-            if (l + 1 < rows) orow[l + 1] = v1;
-          }
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = 16 * mt + 8 * h + g;
+      if (q >= nqr) continue;
+      float* orow = out + static_cast<long long>(q) * L;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int l = n0 + 8 * nt + 2 * c;
+        const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+        if (pairs && l + 1 < rows) {
+          *reinterpret_cast<float2*>(orow + l) = make_float2(v0, v1);
+        } else {
+          if (l < rows) orow[l] = v0;
+          if (l + 1 < rows) orow[l + 1] = v1;
         }
       }
     }
   }
 }
 
-template <typename T, bool kVec>
+// One warp (K5): a unit's accumulators times the row's scale, -inf where the
+// row's id is negative, into the shared score tile (rows sp floats apart,
+// sp = 8 mod 32, so the float2 stores of a half warp meet 32 different
+// banks).  A lane's eight columns' scales and masks are read once.
+__device__ __forceinline__ void store_topk_unit(const float (&acc)[2][kNT][4], int nqr, int n0, int rows, float* sc,
+                                                int sp, const float* scales, const int32_t* ids) {
+  const int lane = threadIdx.x % kWarp;
+  const int g = lane >> 2, c = lane & 3;
+  float scl[kNT][2];
+  bool live[kNT][2];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int l = n0 + 8 * nt + 2 * c + e;
+      live[nt][e] = l < rows && ids[l] >= 0;
+      scl[nt][e] = l < rows ? scales[l] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = 16 * mt + 8 * h + g;
+      if (q >= nqr) continue;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int l = n0 + 8 * nt + 2 * c;
+        const float v0 = live[nt][0] ? acc[mt][nt][2 * h] * scl[nt][0] : neg_inf();
+        const float v1 = live[nt][1] ? acc[mt][nt][2 * h + 1] * scl[nt][1] : neg_inf();
+        if (l + 1 < rows) {
+          *reinterpret_cast<float2*>(sc + q * sp + l) = make_float2(v0, v1);
+        } else if (l < rows) {
+          sc[q * sp + l] = v0;
+        }
+      }
+    }
+  }
+}
+
+// All warps (K3/K4): the scores of `nqr` converted queries at A against
+// `rows` converted block rows at B into out (rows L floats apart), each warp
+// kUnit rows at a time against all kQT queries.
+__device__ __forceinline__ void score_tile(const uint16_t* A, int nqr, const uint16_t* B, int rows, int d, int dp,
+                                           float* out, int L, bool pairs) {
+  const int warp = threadIdx.x / kWarp;
+  for (int n0 = warp * kUnit; n0 < rows; n0 += kSlotWarps * kUnit) {
+    float acc[2][kNT][4];
+    mma_unit(A, nqr, B, n0, rows, d, dp, acc);
+    store_unit(acc, nqr, n0, rows, out, L, pairs);
+  }
+}
+
+// One warp: sort each row's (v[r], c[r]) across the lanes best first (the
+// larger value, and among equal values the lower c), the rows' bitonic
+// networks of 15 exchanges interleaved.
+__device__ __forceinline__ void warp_sort(float (&v)[kRowsPerWarp], int32_t (&c)[kRowsPerWarp]) {
+  const int lane = threadIdx.x % kWarp;
+#pragma unroll
+  for (int k = 2; k <= kWarp; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const bool keep_better = ((lane & j) == 0) == ((lane & k) == 0);
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const float ov = __shfl_xor_sync(kAll, v[r], j);
+        const int32_t oc = __shfl_xor_sync(kAll, c[r], j);
+        // no short circuit: a branch here costs a reconvergence barrier per exchange
+        const bool take = ((ov > v[r]) | ((ov == v[r]) & (oc < c[r]))) == keep_better;
+        v[r] = take ? ov : v[r];
+        c[r] = take ? oc : c[r];
+      }
+    }
+  }
+}
+
+// One warp, each row's kp-th largest of v[r] across the lanes (a values-only
+// bitonic network, the rows interleaved).
+__device__ __forceinline__ void warp_kth(float (&v)[kRowsPerWarp], int kp) {
+  const int lane = threadIdx.x % kWarp;
+#pragma unroll
+  for (int k = 2; k <= kWarp; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const bool keep_better = ((lane & j) == 0) == ((lane & k) == 0);
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const float ov = __shfl_xor_sync(kAll, v[r], j);
+        v[r] = keep_better ? fmaxf(v[r], ov) : fminf(v[r], ov);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) v[r] = __shfl_sync(kAll, v[r], kp - 1);
+}
+
+// One warp, K' <= kRegK: merge a row tile's scores of the warp's query rows
+// q0 + 8 r (sc rows sp floats apart, [0, rows) live, columns row0 + l) into
+// each row's running top-K', entry `lane` in (lv[r], lc[r]) (value,
+// column), sorted best first; rows from nqr on hold no scores.  A row's
+// candidates are its scores above the list's K'-th; for an empty list
+// (`fresh`), those at or above the K'-th largest of the lanes' maxima, a
+// bound that K' scores of the tile reach.  They are packed, in column
+// order, into the row's own storage (read into registers first), kWarp - K'
+// at a time beside the list, and each batch is sorted with the list.  The
+// rows' steps interleave.
+__device__ __forceinline__ void merge_rows(float* sc, int sp, int q0, int nqr, int row0, int rows, int kp, bool fresh,
+                                           float (&lv)[kRowsPerWarp], int32_t (&lc)[kRowsPerWarp]) {
+  const int lane = threadIdx.x % kWarp;
+  float v[kRowsPerWarp][kMaxJ], t[kRowsPerWarp];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const float* srow = sc + (q0 + kSlotWarps * r) * sp;
+    const bool live = q0 + kSlotWarps * r < nqr;
+#pragma unroll
+    for (int j = 0; j < kMaxJ; ++j) v[r][j] = live && kWarp * j + lane < rows ? srow[kWarp * j + lane] : neg_inf();
+  }
+  if (fresh) {
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      t[r] = v[r][0];
+#pragma unroll
+      for (int j = 1; j < kMaxJ; ++j) t[r] = fmaxf(t[r], v[r][j]);
+      lv[r] = neg_inf();
+      lc[r] = 0x7fffffff;
+    }
+    warp_kth(t, kp);
+  } else {
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) t[r] = __shfl_sync(kAll, lv[r], kp - 1);
+  }
+  unsigned bits[kRowsPerWarp][kMaxJ];
+  int total[kRowsPerWarp], most = 0;
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    total[r] = 0;
+#pragma unroll
+    for (int j = 0; j < kMaxJ; ++j) {
+      bits[r][j] = __ballot_sync(kAll, v[r][j] > neg_inf() && (fresh ? v[r][j] >= t[r] : v[r][j] > t[r]));
+      total[r] += __popc(bits[r][j]);
+    }
+    most = max(most, total[r]);
+  }
+  if (most == 0) return;
+  const int room = kWarp - kp;
+  const unsigned below = (1u << lane) - 1u;
+  for (int base = 0; base < most; base += room) {
+    __syncwarp();  // the rows' storage is read (scores, or the last batch): it takes this batch
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      float* srow = sc + (q0 + kSlotWarps * r) * sp;
+      int32_t* scol = reinterpret_cast<int32_t*>(srow + kWarp);
+      int before = 0;
+#pragma unroll
+      for (int j = 0; j < kMaxJ; ++j) {
+        const int at = before + __popc(bits[r][j] & below) - base;
+        if (((bits[r][j] >> lane) & 1u) && at >= 0 && at < room) {
+          srow[at] = v[r][j];
+          scol[at] = row0 + kWarp * j + lane;
+        }
+        before += __popc(bits[r][j]);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const float* srow = sc + (q0 + kSlotWarps * r) * sp;
+      if (lane >= kp) {
+        const bool has = lane - kp < total[r] - base;
+        lv[r] = has ? srow[lane - kp] : neg_inf();
+        lc[r] = has ? reinterpret_cast<const int32_t*>(srow + kWarp)[lane - kp] : 0x7fffffff;
+      }
+    }
+    warp_sort(lv, lc);
+  }
+}
+
+// One warp, K' > kRegK: merge a tile's scores of one query row (srow[0,
+// rows), ids[0, rows)) into the row's running top-K', kept in the row's own
+// output (gv, gi)[0, kp) sorted best first.  The tile's columns follow the
+// list's and enter in column order, each after every entry of equal value,
+// at the position a ballot of `list >= score` gives; the entries below it
+// move down a chunk of 32 at a time.  The slower path, for large k_out.
+__device__ __noinline__ void merge_global(const float* srow, const int32_t* ids, int rows, int kp,
+                                          volatile float* gv, volatile int32_t* gi) {
+  const int lane = threadIdx.x % kWarp;
+  float thr = gv[kp - 1];
+  for (int c = 0; c < rows; c += kWarp) {
+    const float cv = c + lane < rows ? srow[c + lane] : neg_inf();
+    unsigned m = __ballot_sync(kAll, cv > thr);
+    while (m) {
+      const int src = __ffs(m) - 1;
+      const float v = __shfl_sync(kAll, cv, src);
+      const int32_t id = ids[c + src];
+      int p = 0;
+      for (int j = 0; j < kp; j += kWarp) {
+        const unsigned b = __ballot_sync(kAll, j + lane < kp && gv[j + lane] >= v);
+        p += __popc(b);
+        if (b != kAll) break;  // the rest lie below v
+      }
+      for (int j = (kp - 1) / kWarp * kWarp; j >= p / kWarp * kWarp; j -= kWarp) {  // the last chunk first
+        const int e = j + lane;
+        const bool move = e > p && e < kp;
+        float x = 0.f;
+        int32_t xi = 0;
+        if (move) {
+          x = gv[e - 1];
+          xi = gi[e - 1];
+        }
+        __syncwarp();
+        if (move) {
+          gv[e] = x;
+          gi[e] = xi;
+        } else if (e == p) {
+          gv[e] = v;
+          gi[e] = id;
+        }
+        __syncwarp();
+      }
+      thr = gv[kp - 1];
+      m &= __ballot_sync(kAll, cv > thr) & ~(1u << src);
+    }
+  }
+}
+
+// K3/K4 (kOut = kScores) and K5 (kTopkRegs, kTopkGlobal): one body.
+template <typename T, bool kVec, int kOut>
 __global__ void __launch_bounds__(kSlotThreads) slot_score_kernel(const __grid_constant__ SlotArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   unsigned char* stages = smem + kBarBytes;
+  const int q_rows = min(a.cap, kQT);
   uint16_t* Bc = reinterpret_cast<uint16_t*>(stages + a.nbuf * a.stage_bytes);  // [LT, dp]
-  uint16_t* Ac = Bc + static_cast<long long>(a.LT) * a.dp;                       // [min(cap, kQT), dp]
+  float* sc = reinterpret_cast<float*>(Bc);  // K5: [q_rows, sp], over Bc once the tile is scored
+  uint16_t* Ac = reinterpret_cast<uint16_t*>(reinterpret_cast<unsigned char*>(Bc) + a.bc_area);  // [q_rows, dp]
+  float* colS = reinterpret_cast<float*>(Ac + q_rows * a.dp);  // K5: [LT] scales
+  int32_t* colI = reinterpret_cast<int32_t*>(colS + a.LT);     // K5: [LT] ids
 
   const int s0 = blockIdx.x * a.G;
   const int nq = (a.cap + kQT - 1) / kQT;
   const int nl = (a.L + a.LT - 1) / a.LT;
   const int items = min(a.G, a.S - s0) * nq * nl;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const bool issuer = threadIdx.x == 0;
+  float lv[kRowsPerWarp];  // kTopkRegs: entry `lane` of the top-K' of query rows warp + 8 r (value, column)
+  int32_t lc[kRowsPerWarp];
   if (issuer) {
     for (int b = 0; b < a.nbuf; ++b) mbar_init(&bars[b]);
     for (int it = 0; it < a.nbuf && it < items; ++it) {
@@ -596,14 +723,67 @@ __global__ void __launch_bounds__(kSlotThreads) slot_score_kernel(const __grid_c
     const long long key = clamp_key(a.slot_keys[m.s], a.k_blocks);
     const uintptr_t r0 = reinterpret_cast<uintptr_t>(a.blocks) + (key * a.L + row0) * a.d * static_cast<long long>(sizeof(T));
     convert_rows<T, kVec>(stage + (r0 & 15), rows, a.d, a.dp, Bc);
+    if constexpr (kOut != kScores) {  // the tile's ids and scales out of the stage
+      const long long col = (key * a.L + row0) * 4;
+      const unsigned char* ist = stage + a.blk_area + a.qry_area;
+      const int32_t* ids = reinterpret_cast<const int32_t*>(ist + ((reinterpret_cast<uintptr_t>(a.block_ids) + col) & 15));
+      const float* scl =
+          reinterpret_cast<const float*>(ist + a.col_area + ((reinterpret_cast<uintptr_t>(a.block_scales) + col) & 15));
+      for (int r = threadIdx.x; r < rows; r += kSlotThreads) {
+        colI[r] = ids[r];
+        colS[r] = scl[r];
+      }
+    }
     __syncthreads();  // the converted tiles are in place; the stage is free
     if (issuer && nxt < items) {
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the stage's reads before its async refill
       issue_item<T>(a, mn, next_key, stage, &bars[b]);
     }
-    score_tile(Ac, nqr, Bc, rows, a.d, a.dp, a.out + (static_cast<long long>(m.s) * a.cap + c0) * a.L + row0, a.L,
-               a.L % 2 == 0 && a.LT % 2 == 0);
-    __syncthreads();  // the converted tiles are free again
+    if constexpr (kOut == kScores) {
+      score_tile(Ac, nqr, Bc, rows, a.d, a.dp, a.out + (static_cast<long long>(m.s) * a.cap + c0) * a.L + row0, a.L,
+                 a.L % 2 == 0 && a.LT % 2 == 0);
+    } else {
+      float acc[2][kNT][4];  // rows <= kMaxLT: a warp scores at most one unit
+      const int n0 = warp * kUnit;
+      if (n0 < rows) mma_unit(Ac, nqr, Bc, n0, rows, a.d, a.dp, acc);
+      __syncthreads();  // Bc is read: the score tile takes its place
+      if (n0 < rows) store_topk_unit(acc, nqr, n0, rows, sc, a.sp, colS, colI);
+      __syncthreads();  // the tile's scaled, masked scores are in `sc`
+      if constexpr (kOut == kTopkRegs) {
+        merge_rows(sc, a.sp, warp, nqr, row0, rows, a.kp, m.lt == 0, lv, lc);
+        if (m.lt == nl - 1) {  // the ids of every row's list first, then the stores
+          int32_t id[kRowsPerWarp];
+#pragma unroll
+          for (int r = 0; r < kRowsPerWarp; ++r)
+            id[r] = lane < a.kp && lv[r] > neg_inf() ? a.block_ids[key * a.L + lc[r]] : -1;
+#pragma unroll
+          for (int r = 0; r < kRowsPerWarp; ++r) {
+            const int q = warp + kSlotWarps * r;
+            if (q >= nqr) break;
+            const long long o = (static_cast<long long>(m.s) * a.cap + c0 + q) * a.k_out;
+            for (int e = lane; e < a.k_out; e += kWarp) {  // every column, (-inf, -1) past K'
+              a.out_v[o + e] = e < a.kp ? lv[r] : neg_inf();
+              a.out_i[o + e] = e < a.kp ? id[r] : -1;
+            }
+          }
+        }
+      } else {
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          const int q = warp + kSlotWarps * r;
+          if (q >= nqr) break;
+          const long long o = (static_cast<long long>(m.s) * a.cap + c0 + q) * a.k_out;
+          if (m.lt == 0) {
+            for (int e = lane; e < a.k_out; e += kWarp) {
+              a.out_v[o + e] = neg_inf();
+              a.out_i[o + e] = -1;
+            }
+            __syncwarp();
+          }
+          merge_global(sc + q * a.sp, colI, rows, a.kp, a.out_v + o, a.out_i + o);
+        }
+      }
+    }
+    __syncthreads();  // the converted tiles (and K5's score tile) are free again
   }
 }
 
@@ -624,22 +804,27 @@ cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// Every instance of one output kind allowed `bytes` of shared memory.
+template <int kOut>
+cudaError_t allow_kind(int bytes) {
+  cudaError_t err = allow_smem(slot_score_kernel<uint16_t, true, kOut>, bytes);
+  if (!err) err = allow_smem(slot_score_kernel<uint16_t, false, kOut>, bytes);
+  if (!err) err = allow_smem(slot_score_kernel<float, true, kOut>, bytes);
+  if (!err) err = allow_smem(slot_score_kernel<float, false, kOut>, bytes);
+  if (!err) err = allow_smem(slot_score_kernel<int8_t, true, kOut>, bytes);
+  if (!err) err = allow_smem(slot_score_kernel<int8_t, false, kOut>, bytes);
+  return err;
+}
+
 // The device's limits, and every kernel instance allowed all of a block's
 // shared memory (the current device must be `device`).
 DeviceLimits read_limits(int device) {
   DeviceLimits l;
   cudaError_t err = cudaDeviceGetAttribute(&l.smem_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (!err) err = cudaDeviceGetAttribute(&l.smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
-  const int b = l.smem_block;
-  if (!err) err = allow_smem(slot_score_kernel<uint16_t, true>, b);
-  if (!err) err = allow_smem(slot_score_kernel<uint16_t, false>, b);
-  if (!err) err = allow_smem(slot_score_kernel<float, true>, b);
-  if (!err) err = allow_smem(slot_score_kernel<float, false>, b);
-  if (!err) err = allow_smem(slot_score_kernel<int8_t, true>, b);
-  if (!err) err = allow_smem(slot_score_kernel<int8_t, false>, b);
-  if (!err) err = allow_smem(ivf_score_kernel<uint16_t, true>, b);
-  if (!err) err = allow_smem(ivf_score_kernel<float, true>, b);
-  if (!err) err = allow_smem(ivf_score_kernel<int8_t, true>, b);
+  if (!err) err = allow_kind<kScores>(l.smem_block);
+  if (!err) err = allow_kind<kTopkRegs>(l.smem_block);
+  if (!err) err = allow_kind<kTopkGlobal>(l.smem_block);
   l.err = err;
   return l;
 }
@@ -656,83 +841,54 @@ cudaError_t use_device(int device, const DeviceLimits** limits) {
   return g_limits[device].err;
 }
 
-// K5's tile sizes for one call, into `a`; `*smem` gets the dynamic shared
-// memory.  Query tiles of CQ rows (a multiple of kQ, at most 32), row tiles
-// of LT rows; two tile buffers whenever a thread block has more than one
-// item.
-cudaError_t make_plan(int optin, int esize, Args* a, size_t* smem) {
-  const int L = a->L, d = a->d, cap = a->cap;
-  const size_t budget = static_cast<size_t>(optin);
-  int CQ = ((cap + kQ - 1) / kQ) * kQ;
-  if (CQ > 32) CQ = 32;
-  while (CQ > kQ && (static_cast<size_t>(CQ) * d * 4 > budget / 4 || static_cast<size_t>(CQ) * L * 4 > budget / 2))
-    CQ -= kQ;
-  const size_t fixed = static_cast<size_t>(CQ) * d * 4 + static_cast<size_t>(CQ) * L * 4;
-  const size_t row_bytes = static_cast<size_t>(d) * esize;
-  if (fixed + 2 * (row_bytes + 32) > budget) return cudaErrorInvalidValue;
-  const size_t per_buf = (budget - fixed) / 2 - 32;  // room for the 16-byte head and tail
-  int LT = static_cast<int>(per_buf / row_bytes);
-  if (LT > L) LT = L;
-  const int nq = (cap + CQ - 1) / CQ;
-  const int nl = (L + LT - 1) / LT;
-  const int items = (a->G < a->S ? a->G : a->S) * nq * nl;
-  a->LT = LT;
-  a->CQ = CQ;
-  a->nbuf = items > 1 ? 2 : 1;
-  a->tile_bytes = ((static_cast<size_t>(LT) * row_bytes + 16 + 15) / 16) * 16;
-  *smem = a->nbuf * a->tile_bytes + fixed;
-  return cudaSuccess;
+// Bytes of a stage's column span (K5's ids or scales), floats between two
+// rows of K5's score tile (8 mod 32, and room for a row's 32 candidates
+// and their columns), and bytes of the converted block tile or, for K5, the
+// score tile over it, at row tile LT.
+long long col_area(const SlotArgs& a, int LT) { return a.kp > 0 ? pad_to(LT * 4LL + kSpanSlack, 16) : 0; }
+int score_pitch(const SlotArgs& a, int LT) {
+  return a.kp > 0 ? static_cast<int>((LT > 2 * kWarp ? pad_to(LT, kWarp) : 2 * kWarp) + 8) : 0;
+}
+long long bc_area(const SlotArgs& a, int LT) {
+  const long long q_rows = a.cap < kQT ? a.cap : kQT;
+  const long long bc = static_cast<long long>(LT) * a.dp * 2, sc = q_rows * score_pitch(a, LT) * 4;
+  return pad_to(bc > sc ? bc : sc, 16);
 }
 
-int launch_topk(Args a, int dtype, int device, void* stream) {
-  const DeviceLimits* lim = nullptr;
-  cudaError_t err = use_device(device, &lim);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (a.S <= 0 || a.cap <= 0 || a.L <= 0) return 0;
-  const int esize = dtype == 1 ? 4 : (dtype == 2 ? 1 : 2);
-  size_t smem = 0;
-  err = make_plan(lim->smem_block, esize, &a, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>((a.S + a.G - 1) / a.G);
-  switch (dtype) {
-    case 0: ivf_score_kernel<uint16_t, true><<<grid, kThreads, smem, st>>>(a); break;
-    case 1: ivf_score_kernel<float, true><<<grid, kThreads, smem, st>>>(a); break;
-    case 2: ivf_score_kernel<int8_t, true><<<grid, kThreads, smem, st>>>(a); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Shared memory of a K3/K4 block at row tile LT.
+// Shared memory of a block at row tile LT: the barriers, the stages, the
+// converted tiles (for K5 the score tile over the block's), and for K5 the
+// tile's scales and ids.
 long long slot_smem(const SlotArgs& a, int esize, int LT, int nbuf) {
   const long long q_rows = a.cap < kQT ? a.cap : kQT;
   const long long blk = pad_to(static_cast<long long>(LT) * a.d * esize + kSpanSlack, 16);
   const long long qry = pad_to(q_rows * a.d * 2 + kSpanSlack, 16);
-  return kBarBytes + nbuf * (blk + qry) + (LT + q_rows) * a.dp * 2;
+  return kBarBytes + nbuf * (blk + qry + 2 * col_area(a, LT)) + bc_area(a, LT) + q_rows * a.dp * 2 +
+         (a.kp > 0 ? LT * 8LL : 0);
 }
 
-// The row tile, stages and shared memory of a K3/K4 call, into `a`.  The
-// tile is the largest (L, or a multiple of kUnit rows) with which
-// kBlocksPerSm blocks share an SM, else with which one block fits; it does
-// not depend on G or S, so neither does any output's summation order.
+// The row tile, stages and shared memory of a call, into `a`.  The tile is
+// the largest (L, or a multiple of kUnit rows; for K5 at most kMaxLT) with
+// which kBlocksPerSm blocks share an SM, else with which one block fits; it
+// does not depend on G, S or k_out, so neither does any output's summation
+// order.
 cudaError_t plan_slots(const DeviceLimits& lim, int esize, SlotArgs* a, int* smem) {
   a->dp = static_cast<int>(pad_to(a->d, 16)) + 8;
   const long long shared = lim.smem_sm / kBlocksPerSm - 1024;  // 1 KB a block for the runtime
+  const int lmax = a->kp > 0 && a->L > kMaxLT ? kMaxLT : a->L;  // K5: a warp scores at most one unit
   int LT = 0;
   for (const long long budget : {shared < lim.smem_block ? shared : static_cast<long long>(lim.smem_block),
                                  static_cast<long long>(lim.smem_block)}) {
-    if (slot_smem(*a, esize, a->L, kStages) <= budget) {
-      LT = a->L;
+    if (slot_smem(*a, esize, lmax, kStages) <= budget) {
+      LT = lmax;
       break;
     }
-    int lt = a->L / kUnit * kUnit;
+    int lt = lmax / kUnit * kUnit;
     while (lt > kUnit && slot_smem(*a, esize, lt, kStages) > budget) lt -= kUnit;
     if (lt >= kUnit && slot_smem(*a, esize, lt, kStages) <= budget) {
       LT = lt;
       break;
     }
-    lt = a->L < kUnit ? a->L : kUnit;  // very long rows: fewer rows a tile
+    lt = lmax < kUnit ? lmax : kUnit;  // very long rows: fewer rows a tile
     while (lt > 1 && slot_smem(*a, esize, lt, kStages) > budget) --lt;
     if (slot_smem(*a, esize, lt, kStages) <= budget) {
       LT = lt;
@@ -746,9 +902,27 @@ cudaError_t plan_slots(const DeviceLimits& lim, int esize, SlotArgs* a, int* sme
   a->LT = LT;
   a->nbuf = items > 1 ? kStages : 1;
   a->blk_area = static_cast<int>(pad_to(static_cast<long long>(LT) * a->d * esize + kSpanSlack, 16));
-  a->stage_bytes = a->blk_area + static_cast<int>(pad_to((a->cap < kQT ? a->cap : kQT) * 2LL * a->d + kSpanSlack, 16));
+  a->qry_area = static_cast<int>(pad_to((a->cap < kQT ? a->cap : kQT) * 2LL * a->d + kSpanSlack, 16));
+  a->col_area = static_cast<int>(col_area(*a, LT));
+  a->sp = score_pitch(*a, LT);
+  a->bc_area = static_cast<int>(bc_area(*a, LT));
+  a->stage_bytes = a->blk_area + a->qry_area + 2 * a->col_area;
   *smem = static_cast<int>(slot_smem(*a, esize, LT, a->nbuf));
   return cudaSuccess;
+}
+
+template <int kOut>
+cudaError_t launch_kind(const SlotArgs& a, int dtype, bool vec, unsigned grid, int smem, cudaStream_t stream) {
+  switch (dtype * 2 + (vec ? 1 : 0)) {
+    case 0: slot_score_kernel<uint16_t, false, kOut><<<grid, kSlotThreads, smem, stream>>>(a); break;
+    case 1: slot_score_kernel<uint16_t, true, kOut><<<grid, kSlotThreads, smem, stream>>>(a); break;
+    case 2: slot_score_kernel<float, false, kOut><<<grid, kSlotThreads, smem, stream>>>(a); break;
+    case 3: slot_score_kernel<float, true, kOut><<<grid, kSlotThreads, smem, stream>>>(a); break;
+    case 4: slot_score_kernel<int8_t, false, kOut><<<grid, kSlotThreads, smem, stream>>>(a); break;
+    case 5: slot_score_kernel<int8_t, true, kOut><<<grid, kSlotThreads, smem, stream>>>(a); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 int launch_slots(SlotArgs a, int dtype, int device, cudaStream_t stream) {
@@ -762,28 +936,13 @@ int launch_slots(SlotArgs a, int dtype, int device, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec = a.d % 4 == 0;  // 4 lanes of a row are one aligned load
   const unsigned grid = static_cast<unsigned>((a.S + a.G - 1) / a.G);
-  switch (dtype * 2 + (vec ? 1 : 0)) {
-    case 0: slot_score_kernel<uint16_t, false><<<grid, kSlotThreads, smem, stream>>>(a); break;
-    case 1: slot_score_kernel<uint16_t, true><<<grid, kSlotThreads, smem, stream>>>(a); break;
-    case 2: slot_score_kernel<float, false><<<grid, kSlotThreads, smem, stream>>>(a); break;
-    case 3: slot_score_kernel<float, true><<<grid, kSlotThreads, smem, stream>>>(a); break;
-    case 4: slot_score_kernel<int8_t, false><<<grid, kSlotThreads, smem, stream>>>(a); break;
-    case 5: slot_score_kernel<int8_t, true><<<grid, kSlotThreads, smem, stream>>>(a); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (a.kp == 0) return static_cast<int>(launch_kind<kScores>(a, dtype, vec, grid, smem, stream));
+  if (a.kp <= kRegK) return static_cast<int>(launch_kind<kTopkRegs>(a, dtype, vec, grid, smem, stream));
+  return static_cast<int>(launch_kind<kTopkGlobal>(a, dtype, vec, grid, smem, stream));
 }
 
-}  // namespace
-
-// Block dtype codes: 0 = bf16, 1 = f32, 2 = int8.  Both functions launch on
-// `stream` (the caller's current CUDA stream) and return cudaGetLastError()
-// as an int: 0 when the launch was accepted.  `blocks` and `qg` start on
-// 16-byte boundaries.
-
-extern "C" int gt_ivf_score_slots(const void* blocks, int dtype, long long k_blocks, int L, int d,
-                                  const void* slot_keys, int S, const void* qg, int cap, int group,
-                                  void* out, int device, void* stream) {
+SlotArgs slot_args(const void* blocks, long long k_blocks, int L, int d, const void* slot_keys, int S, const void* qg,
+                   int cap, int group) {
   SlotArgs a = {};
   a.blocks = static_cast<const unsigned char*>(blocks);
   a.k_blocks = k_blocks;
@@ -794,32 +953,40 @@ extern "C" int gt_ivf_score_slots(const void* blocks, int dtype, long long k_blo
   a.G = group < 1 ? 1 : group;
   a.qg = static_cast<const unsigned char*>(qg);
   a.cap = cap;
+  return a;
+}
+
+}  // namespace
+
+// Block dtype codes: 0 = bf16, 1 = f32, 2 = int8.  Both functions launch on
+// `stream` (the caller's current CUDA stream) and return cudaGetLastError()
+// as an int: 0 when the launch was accepted.  `blocks`, `qg`, `block_ids`
+// and `block_scales` start on 16-byte boundaries.
+
+extern "C" int gt_ivf_score_slots(const void* blocks, int dtype, long long k_blocks, int L, int d,
+                                  const void* slot_keys, int S, const void* qg, int cap, int group,
+                                  void* out, int device, void* stream) {
+  SlotArgs a = slot_args(blocks, k_blocks, L, d, slot_keys, S, qg, cap, group);
   a.out = static_cast<float*>(out);
   return launch_slots(a, dtype, device, static_cast<cudaStream_t>(stream));
 }
 
+// K5: writes every one of the k_out columns of out_v / out_i, so they need
+// no fill; kp = min(k_out, L).
 extern "C" int gt_ivf_score_topk(const void* blocks, int dtype, long long k_blocks, int L, int d,
                                  const void* block_ids, const void* block_scales,
                                  const void* slot_keys, int S, const void* qg, int cap, int group,
                                  int kp, int k_out, void* out_v, void* out_i, int device,
                                  void* stream) {
-  Args a = {};
-  a.blocks = static_cast<const unsigned char*>(blocks);
-  a.k_blocks = k_blocks;
-  a.L = L;
-  a.d = d;
-  a.slot_keys = static_cast<const int32_t*>(slot_keys);
-  a.S = S;
-  a.G = group < 1 ? 1 : group;
-  a.qg = static_cast<const uint16_t*>(qg);
-  a.cap = cap;
+  if (kp < 1 || kp > L || k_out < kp) return static_cast<int>(cudaErrorInvalidValue);
+  SlotArgs a = slot_args(blocks, k_blocks, L, d, slot_keys, S, qg, cap, group);
   a.block_ids = static_cast<const int32_t*>(block_ids);
   a.block_scales = static_cast<const float*>(block_scales);
   a.kp = kp;
   a.k_out = k_out;
   a.out_v = static_cast<float*>(out_v);
   a.out_i = static_cast<int32_t*>(out_i);
-  return launch_topk(a, dtype, device, stream);
+  return launch_slots(a, dtype, device, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* gt_ivf_cuda_error_string(int err) {

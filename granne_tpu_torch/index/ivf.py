@@ -314,8 +314,7 @@ class IvfIndex:
         """
         q = D.normalize(D.as_f32(queries, self.device))
         if grouped:
-            B = q.shape[0]
-            num_slots = min(B * nprobe, self.k + (B * nprobe) // group_cap + 8)
+            num_slots = slot_count(self.k, q.shape[0], nprobe, group_cap)
             return _ivf_search_grouped(
                 self.centroids, self.blocks, self.block_ids, self.block_scales, q,
                 nprobe=nprobe, k_out=num_neighbors, group_cap=group_cap, num_slots=num_slots,
@@ -325,6 +324,30 @@ class IvfIndex:
             self.centroids, self.blocks, self.block_ids, self.block_scales, q,
             nprobe=nprobe, k_out=num_neighbors, query_chunk=query_chunk,
         )
+
+
+def slot_count(k: int, B: int, nprobe: int, group_cap: int) -> int:
+    """Slots of a grouped search of ``B`` queries: one a probed block, and
+    one more per ``group_cap`` queries that probe it, with room to spare."""
+    return min(B * nprobe, k + (B * nprobe) // group_cap + 8)
+
+
+def slot_groups(q, centroids, blocks, *, nprobe, group_cap, num_slots):
+    """The grouped search's slots for unit queries ``q``: (keys int32[S]
+    clamped into [0, k), qg bf16[S, group_cap, d] each slot's query group,
+    and ``group_pairs``'s slot_pairs, item_slot, item_pos, sorted_pairs).
+    Equal keys come in runs; an unused slot is clamped to block 0 and holds
+    query 0."""
+    P = q.shape[0] * nprobe
+    pair_keys = _probe(q, centroids, nprobe).reshape(-1).to(torch.int32)
+    pair_idx = torch.arange(P, dtype=torch.int32, device=q.device)
+    slot_keys, slot_pairs, item_slot, item_pos, sorted_pairs, _ = group_pairs(
+        pair_keys, pair_idx, cap=group_cap, num_slots=num_slots
+    )
+    safe_keys = torch.clamp(slot_keys, 0, blocks.shape[0] - 1).contiguous()
+    slot_queries = torch.where(slot_pairs >= 0, slot_pairs // nprobe, 0)
+    qg = q.to(torch.bfloat16)[slot_queries.long()]  # [S, cap, d]
+    return safe_keys, qg, slot_pairs, item_slot, item_pos, sorted_pairs
 
 
 def _probe(q, centroids, nprobe):
@@ -346,20 +369,11 @@ def _ivf_search_grouped(
     B = q.shape[0]
     L = blocks.shape[1]
     S = num_slots
-    probes = _probe(q, centroids, nprobe)  # [B, nprobe]
-
     P = B * nprobe
-    pair_keys = probes.reshape(-1).to(torch.int32)
-    pair_idx = torch.arange(P, dtype=torch.int32, device=q.device)
-    slot_keys, slot_pairs, item_slot, item_pos, sorted_pairs, _ = group_pairs(
-        pair_keys, pair_idx, cap=group_cap, num_slots=S
+    # per-slot block + query group; an unused slot is scored and masked below
+    safe_keys, qg, slot_pairs, item_slot, item_pos, sorted_pairs = slot_groups(
+        q, centroids, blocks, nprobe=nprobe, group_cap=group_cap, num_slots=S
     )
-
-    # per-slot block + query group; an unused slot is clamped to block 0,
-    # scored, and masked below
-    safe_keys = torch.clamp(slot_keys, 0, blocks.shape[0] - 1).contiguous()
-    slot_queries = torch.where(slot_pairs >= 0, slot_pairs // nprobe, 0)
-    qg = q.to(torch.bfloat16)[slot_queries.long()]  # [S, cap, d]
     lin = torch.where(item_slot >= 0, item_slot * group_cap + item_pos, 0).long()
     dropped = (item_slot < 0)[:, None]
     order = sorted_pairs.long()

@@ -6,7 +6,8 @@ Replace the Pallas TPU kernels of ``granne_tpu/ops/pallas/ivf_score.py``:
 ``granne_tpu_torch/csrc/ivf_score.cu`` (its header says what bounds each
 kernel on the H100 and how the design answers that): K3 and K4 are one
 tensor-core body fed by bulk copies, with the slot group G as a parameter
-(G = 1 for K3); K5 is a CUDA-core body with a top-k epilogue.
+(G = 1 for K3); K5 is the same body with a running per-row top-k in its
+epilogue, one slot per thread block.
 
 Unlike the Pallas kernels, blocks may be bf16, f32 or int8 for every one of
 them (each element is rounded to bf16 as the JAX einsum does), any ``d``
@@ -18,7 +19,7 @@ CPU tensors and the kernel for CUDA tensors; for a CUDA tensor it launches
 the kernel or raises.  ``<function>.launches`` counts kernel launches.
 
 A launch is capture-safe: the library is loaded once per process, the
-outputs come from ``torch.empty`` (K5's from ``torch.full``), and the kernel
+outputs come from ``torch.empty`` (K5 writes every output column), and the kernel
 goes to ``torch.cuda.current_stream()`` with no host synchronisation.
 """
 
@@ -126,9 +127,9 @@ def ivf_score_topk_reference(blocks, block_ids, block_scales, slot_keys, qg, *, 
     return out_v, out_i
 
 
-def _aligned(blocks, qg) -> None:
-    if blocks.data_ptr() % 16 or qg.data_ptr() % 16:
-        raise ValueError("blocks and qg must start on 16-byte boundaries")
+def _aligned(*tensors) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("blocks, qg, block_ids and block_scales must start on 16-byte boundaries")
 
 
 def launch_scores(lib, blocks, slot_keys, qg, group: int):
@@ -179,6 +180,35 @@ def ivf_score_slots_grouped(blocks, slot_keys, qg, *, group: int = 8):
     return out
 
 
+def launch_topk(lib, blocks, block_ids, block_scales, slot_keys, qg, k_out: int, *, prefill: bool = False):
+    """K5 from ``lib`` on checked CUDA tensors: (vals, ids), uncounted.
+    ``prefill`` fills the outputs with (-inf, -1) first, as a library that
+    writes only the first K' columns needs."""
+    k, L, d = blocks.shape
+    S, cap, _ = qg.shape
+    dev = blocks.device
+    if prefill or L == 0:
+        out_v = torch.full((S, cap, k_out), -torch.inf, dtype=torch.float32, device=dev)
+        out_i = torch.full((S, cap, k_out), -1, dtype=torch.int32, device=dev)
+    else:
+        out_v = torch.empty((S, cap, k_out), dtype=torch.float32, device=dev)
+        out_i = torch.empty((S, cap, k_out), dtype=torch.int32, device=dev)
+    if out_v.numel() == 0 or L == 0:
+        return out_v, out_i
+    _aligned(blocks, qg, block_ids, block_scales)
+    stream = torch.cuda.current_stream(dev)
+    err = lib.gt_ivf_score_topk(
+        blocks.data_ptr(), _DTYPE_CODES[blocks.dtype], k, L, d,
+        block_ids.data_ptr(), block_scales.data_ptr(),
+        slot_keys.data_ptr(), S, qg.data_ptr(), cap, 1,
+        min(k_out, L), k_out, out_v.data_ptr(), out_i.data_ptr(),
+        dev.index, stream.cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"ivf_score_topk launch failed: {lib.gt_ivf_cuda_error_string(err).decode()}")
+    return out_v, out_i
+
+
 def ivf_score_topk(blocks, block_ids, block_scales, slot_keys, qg, *, k_out: int):
     """K5: fused scoring + per-(slot, row) top-k.
 
@@ -195,26 +225,9 @@ def ivf_score_topk(blocks, block_ids, block_scales, slot_keys, qg, *, k_out: int
         raise ValueError(f"k_out must be >= 1, got {k_out}")
     if blocks.device.type == "cpu":
         return ivf_score_topk_reference(blocks, block_ids, block_scales, slot_keys, qg, k_out=k_out)
-    lib = load_kernel()
-    k, L, d = blocks.shape
-    S, cap, _ = qg.shape
-    out_v = torch.full((S, cap, k_out), -torch.inf, dtype=torch.float32, device=blocks.device)
-    out_i = torch.full((S, cap, k_out), -1, dtype=torch.int32, device=blocks.device)
-    if out_v.numel() == 0:
-        return out_v, out_i
-    _aligned(blocks, qg)
-    stream = torch.cuda.current_stream(blocks.device)
-    err = lib.gt_ivf_score_topk(
-        blocks.data_ptr(), _DTYPE_CODES[blocks.dtype], k, L, d,
-        block_ids.data_ptr(), block_scales.data_ptr(),
-        slot_keys.data_ptr(), S, qg.data_ptr(), cap, 1,
-        min(k_out, L), k_out, out_v.data_ptr(), out_i.data_ptr(),
-        blocks.device.index, stream.cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"ivf_score_topk launch failed: {lib.gt_ivf_cuda_error_string(err).decode()}")
+    out = launch_topk(load_kernel(), blocks, block_ids, block_scales, slot_keys, qg, k_out)
     ivf_score_topk.launches += 1
-    return out_v, out_i
+    return out
 
 
 ivf_score_slots.launches = 0

@@ -237,6 +237,9 @@ IVF_CASES = [
     (50, 64, 128, 40, 17, 8, 10, False),  # d = 128: whole k steps, rows a multiple of 16 bytes; cap 17
     (30, 37, 100, 25, 1, 8, 10, False),  # ragged L (odd: scalar stores), cap 1
     (6, 256, 100, 45, 40, 8, 10, True),  # runs of equal keys; cap 40: two query tiles
+    (40, 256, 100, 30, 32, 8, 64, False),  # k_out 64: K5's list in its output row, across row tiles
+    (12, 100, 64, 20, 9, 8, 16, False),  # k_out 16: the longest lists K5 keeps in registers
+    (12, 100, 64, 20, 9, 8, 17, False),  # k_out 17: the shortest list K5 keeps in its output row
 ]
 
 
@@ -247,7 +250,8 @@ IVF_CASES = [
 def test_ivf_kernels_match_plain(cuda, dtype, case):
     """K3/K4 within 1e-4 of plain on the cosine scale (raw dots times the
     row's scale: int8 dots run to ~400); K5 values within 1e-4 and ids
-    equal wherever the plain values are not within 1e-4 of a neighbour.
+    equal wherever the plain values are not within 1e-4 of a neighbour
+    (the value just past the last column counts as one).
     Both sum exact bf16 products in f32; only the summation order differs."""
     k, L, d, S, cap, group, k_out, runs = case
     blocks, ids, scales, keys, qg = _ivf_case(cuda, dtype, k, L, d, S, cap, runs=runs)
@@ -270,10 +274,13 @@ def test_ivf_kernels_match_plain(cuda, dtype, case):
     assert torch.equal(torch.isfinite(v), fin) and torch.equal(i[~fin], ri[~fin])
     assert bool((i[~fin] == -1).all())
     assert float((v[fin] - rv[fin]).abs().max()) <= 1e-4
-    gaps = (rv[..., 1:] - rv[..., :-1]).abs()
-    near = torch.zeros_like(fin)
+    # neighbours in plain's ranking, the first value past the last column included
+    rv1 = K.ivf_score_topk_reference(blocks, ids, scales, keys, qg, k_out=k_out + 1)[0]
+    gaps = (rv1[..., 1:] - rv1[..., :-1]).abs()
+    near = torch.zeros_like(rv1, dtype=torch.bool)
     near[..., 1:] |= gaps <= 1e-4
     near[..., :-1] |= gaps <= 1e-4
+    near = near[..., :k_out]
     assert torch.equal(i[~near], ri[~near])
 
 
@@ -304,6 +311,39 @@ def test_ivf_topk_ties_take_the_lower_column(cuda):
     want = ids[2, [3, 10, 30]]
     assert torch.equal(i[:, 0, :3], want.expand(6, 3)) and torch.equal(ri[:, 0, :3], want.expand(6, 3))
     assert bool((v[:, 0, 0] == v[:, 0, 2]).all())
+
+
+def test_ivf_topk_ties_across_row_tiles(cuda):
+    """Exact duplicates of one row far apart in a 512-row block (scored in
+    many row tiles) tie in any summation order: K5 ranks them by column, as
+    its plain version does, with the list in registers (k_out 10) and in the
+    output row (k_out 64), for bf16 and f32 blocks (other row tiles)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        blocks, ids, scales, keys, qg = _ivf_case(cuda, dtype, 6, 512, 300, 9, 32, seed=8)
+        cols = [5, 95, 96, 300, 401]  # far apart, and two neighbours
+        for c in cols[1:]:
+            blocks[3, c] = blocks[3, 5]
+        keys[:] = 3
+        qg[:, 0] = blocks[3, 5].to(torch.bfloat16)
+        for k_out in (10, 64):
+            v, i = K.ivf_score_topk(blocks, ids, scales, keys, qg, k_out=k_out)
+            rv, ri = K.ivf_score_topk_reference(blocks, ids, scales, keys, qg, k_out=k_out)
+            torch.cuda.synchronize()
+            want = ids[3, cols].expand(9, len(cols))
+            assert torch.equal(i[:, 0, : len(cols)], want) and torch.equal(ri[:, 0, : len(cols)], want)
+            assert bool((v[:, 0, : len(cols)] == v[:, 0, :1]).all())
+
+
+def test_ivf_topk_launches_capture_in_a_cuda_graph(cuda):
+    """K5 launches captured in one CUDA graph replay to the eager values and
+    ids exactly and follow new keys (some out of range, so clamped) written
+    into the captured key tensors."""
+    blocks, ids, scales, keys, qg = _ivf_case(cuda, torch.bfloat16, 200, 256, 100, 300, 32, seed=9)
+    before = K.ivf_score_topk.launches
+    _graph_replays_eager(
+        lambda b, kk, q: K.ivf_score_topk(b, ids, scales, kk, q, k_out=10), blocks, [keys.clone() for _ in range(3)], qg
+    )
+    assert K.ivf_score_topk.launches == before + 3 + 3 + 3
 
 
 def test_ivf_search_on_card_matches_cpu(cuda):
