@@ -17,6 +17,9 @@ In the order it runs:
    at the serve shape n=200,000, M=20, d=100, B=1024, E in {1, 4}: ids
    exactly equal, dots within 1e-4 (both sum exact bf16 products in f32 and
    differ only in summation order), finite dots on half-unfilled rows.
+   Then on an int8-provenance table (``cache_rows`` of int8 codes) with the
+   two lane forms of int8 queries: the exact unit query (within 1e-4) and
+   the codes as bf16, up to 127 (within 1e-4 times each query's lane norm).
 3. K2 (``gather_score``) the same way on the tiled layout of that shape
    (24 vectors of 128 lanes a row): dots within 1e-4.
 4. K3/K4/K5 (``ivf_score_slots``, ``ivf_score_slots_grouped``,
@@ -46,8 +49,23 @@ In the order it runs:
    f32 container (recall >= the same search without rerank).
 7. The flat cache-fed build (K1 in the build beam) at n=50,000: recall@10
    >= 0.95 at some ef <= 120 against exact f32 ground truth over those
-   50,000.
-8. The IVF main path through the public API on the same data (bench.py's
+   50,000, and its self-recall@1 over 1,024 rows (logged).
+8. The int8 path on the same data: ``GranneBuilder("angular_int")`` ->
+   ``build`` -> ``save_index`` / ``save_elements`` (the ``i1`` file) ->
+   ``load_granne`` (codes and norms equal) -> four serving routes, recall@10
+   at every ef and QPS at the first ef reaching 0.95 (else the best ef,
+   "below bar"): the int8 container's own traversal (expand 4,
+   ``descent_ef`` 4), its flat cache (K1, exact-unit lanes), the
+   ``dequantized()`` bf16 copy through the flat cache reranked against the
+   codes (``descent_ef`` 4, ``max_iters = max(8, ef - 6)``), and that with
+   round-to-nearest codes.  Each code set's ceiling is the recall of an
+   exact top-10 under its own scoring; the K1 and rerank routes must end
+   within 0.02 of theirs at ef 120, and the rerank route may trail the K1
+   route by at most 0.005 at any ef.  The tiled layout must refuse int8
+   elements with ValueError (serving and build).  Then a flat cache-fed
+   int8 build at 50,000 (K1 in every wave) with self-recall@1 >= 0.95.  The
+   path must have launched K1 (``int8_path_launches`` in K1's record).
+9. The IVF main path through the public API on the same data (bench.py's
    IVF row): ``IvfIndex.build(n_clusters=666, kmeans_iters=10,
    cluster_cap=256)`` in bf16 -> ``save`` -> ``load(device="cuda")`` ->
    ``search_batch`` of all 4,096 queries at nprobe 4..64.  Recall@10 must
@@ -108,6 +126,10 @@ GRAPH_REPLAYS = 5
 RECALL_SLACK = 0.02  # a cache-fed build may lose this much recall against the main path
 F32_OVERLAP = 0.999  # f32-table serving vs the uncached f32 search
 FLAT_BUILD_N = 50_000
+SELF_RECALL_ROWS = 1024  # rows searched for self-recall@1 after a flat cache-fed build
+I8_SELF_RECALL = 0.95  # the int8 cache-fed build's self-recall@1 bar (JAX's test_int8_neighbor_cache_build)
+I8_CEILING_SLACK = 0.02  # an int8 route may end this far below its codes' exact ceiling at the last ef
+I8_RERANK_SLACK = 0.005  # the reranked dequantized route may trail the K1 route this much at any ef
 # H100 SXM peaks (NVIDIA's data sheet) for the bound of each kernel's work
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
@@ -274,6 +296,46 @@ def k1_phase(torch, base_lib):
     del tab
     torch.cuda.empty_cache()
     return {"max_abs_err": err, **by_e[1]}  # the main path serves with expand=1
+
+
+def k1_int8_phase(torch) -> dict:
+    """K1 vs its plain version on an int8-provenance table (``cache_rows``
+    of int8 codes, half-unfilled rows) at the serve shape, E in (1, 4), with
+    both lane forms of int8 queries: the exact unit query (within K1_ATOL)
+    and the int8 codes as bf16 (up to 127: within K1_ATOL times each
+    query's lane norm).  Returns the two largest errors."""
+    from granne_tpu_torch import AngularIntVectors
+    from granne_tpu_torch.elements.angular_int import IntQueries
+    from granne_tpu_torch.ops.kernels import nbr_score as ns
+    from granne_tpu_torch.ops.nbr_cache import make_neighbor_cache
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    el = AngularIntVectors.from_raw(torch.randn((N, D), generator=gen, device=dev), device=dev)
+    adj = torch.randint(0, N, (N, M), generator=gen, device=dev, dtype=torch.int32)
+    adj[::2, M // 2 :] = -1
+    tab = make_neighbor_cache(adj, el)
+    errs = {"int8_unit_lanes_max_abs_err": 0.0, "int8_code_lanes_max_scaled_err": 0.0}
+    for E in (1, 4):
+        sel = torch.randint(-2, N, (SERVE_B, E), generator=gen, device=dev, dtype=torch.int32)
+        q = el.prepare_queries(torch.randn((SERVE_B, D), generator=gen, device=dev))
+        for key, queries in (("int8_unit_lanes_max_abs_err", q),
+                             ("int8_code_lanes_max_scaled_err", IntQueries(q.vecs, q.inv_norms))):
+            lanes = el.query_lanes(queries)
+            dots, nbrs = ns.gather_score_flat(tab, sel, lanes, M=M, d=D)
+            ref_d, ref_n = ns.gather_score_flat_reference(tab, sel, lanes, M=M, d=D)
+            torch.cuda.synchronize()
+            if not torch.equal(nbrs, ref_n) or not bool(torch.isfinite(dots).all()):
+                fail(f"K1 on the int8 table: ids differ or dots not finite ({key}, E={E})")
+            scale = lanes.float().norm(dim=1, keepdim=True) if "code" in key else 1.0
+            err = float(((dots - ref_d).abs() / scale).max())
+            if err > K1_ATOL:
+                fail(f"K1 on the int8 table differs from the plain version: {key} {err} > {K1_ATOL} at E={E}")
+            errs[key] = max(errs[key], err)
+        log(f"K1 int8 table B={SERVE_B} E={E}: {errs} (code lanes up to {float(lanes.abs().max())})")
+    del tab, el, adj
+    torch.cuda.empty_cache()
+    return errs
 
 
 def k2_phase(torch, base_lib):
@@ -481,12 +543,15 @@ def ivf_kernel_phase(torch, base_lib):
     return recs
 
 
-def search_all(torch, index, queries, ef):
-    """Search every query in batches of SERVE_B; (ids, dists) on the card."""
-    out = [
-        index.search_batch(queries[lo : lo + SERVE_B], max_search=ef, num_neighbors=K)
-        for lo in range(0, len(queries), SERVE_B)
-    ]
+def batched(index, queries):
+    """``search(lo, ef)``: ``index.search_batch`` on ``queries[lo : lo + SERVE_B]``."""
+    return lambda lo, ef: index.search_batch(queries[lo : lo + SERVE_B], max_search=ef, num_neighbors=K)
+
+
+def search_all(torch, search, ef):
+    """``search(lo, ef)`` over every query in batches of SERVE_B; (ids, dists)
+    on the card."""
+    out = [search(lo, ef) for lo in range(0, N_QUERIES, SERVE_B)]
     ids, dists = torch.cat([i for i, _ in out]), torch.cat([d for _, d in out])
     torch.cuda.synchronize()
     return ids, dists
@@ -524,7 +589,7 @@ def main_path(torch, g, vecs, queries, gt):
 
     serve = Granne(layers=loaded.layers, elements=loaded.elements.as_bf16()).with_neighbor_cache("flat")
     del built, builder
-    recalls = serve_sweep(torch, serve, queries, gt, N, "bf16+flat cache")
+    recalls = serve_sweep(torch, batched(serve, queries), gt, N, "bf16+flat cache")
     launches = gather_score_flat.launches
     if launches <= 0:
         fail("the main path never launched gather_score_flat")
@@ -532,28 +597,37 @@ def main_path(torch, g, vecs, queries, gt):
     return launches, recalls
 
 
-def serve_sweep(torch, index, queries, gt, n, what):
-    """Recall@K at every ef in EFS, and the QPS at the first ef that reaches
-    TARGET_RECALL (else fail).  Returns {ef: recall}."""
+def serve_sweep(torch, search, gt, n, what, need_bar=True):
+    """Recall@K of ``search(lo, ef)`` (see ``search_all``) at every ef in EFS,
+    and the QPS at the first ef that reaches TARGET_RECALL.  If none does,
+    fail, or with ``need_bar=False`` (the int8 ceiling may sit under the bar)
+    log the QPS at the best ef as "below bar".  Returns {ef: recall}."""
     recalls, chosen = {}, None
     for ef in EFS:
-        ids, dists = search_all(torch, index, queries, ef)
+        ids, dists = search_all(torch, search, ef)
         recalls[ef] = recall_at_k(check_result(torch, ids, dists, n, f"the {what} search at ef={ef}"), gt)
         log(f"{what} search ef={ef}: recall@{K}={recalls[ef]}")
         if chosen is None and recalls[ef] >= TARGET_RECALL:
-            _, qps = timed_search(torch, lambda: search_all(torch, index, queries, ef))
             chosen = ef
-            log(f"serve {what}: ef={ef} recall@{K}={recalls[ef]} qps={qps} (batch {SERVE_B})")
+            log_qps(torch, search, recalls, ef, what, "")
     if chosen is None:
-        fail(f"{what}: recall@{K} stayed below {TARGET_RECALL} for every ef in {EFS}")
+        if need_bar:
+            fail(f"{what}: recall@{K} stayed below {TARGET_RECALL} for every ef in {EFS}")
+        log_qps(torch, search, recalls, max(EFS, key=lambda e: recalls[e]), what, f" below bar {TARGET_RECALL}")
     return recalls
 
 
-def build_index(torch, g, vecs, what, **cfg):
-    """GranneBuilder over ``vecs`` in 50,000-row appends -> build; returns
-    (builder, build seconds)."""
+def log_qps(torch, search, recalls, ef, what, note):
+    """Log the QPS of one warm repeat of ``search`` over every query at ``ef``."""
+    _, qps = timed_search(torch, lambda: search_all(torch, search, ef))
+    log(f"serve {what}: ef={ef} recall@{K}={recalls[ef]} qps={qps} (batch {SERVE_B}){note}")
+
+
+def build_index(torch, g, vecs, what, element_type="angular", **cfg):
+    """GranneBuilder(element_type) over ``vecs`` in 50,000-row appends ->
+    build; returns (builder, build seconds)."""
     builder = g.GranneBuilder(
-        "angular", num_neighbors=M, max_search=BUILD_EF, wave_size=WAVE, expand=EXPAND,
+        element_type, num_neighbors=M, max_search=BUILD_EF, wave_size=WAVE, expand=EXPAND,
         show_progress=True, device="cuda", **cfg,
     )
     for lo in range(0, len(vecs), 50_000):
@@ -563,7 +637,7 @@ def build_index(torch, g, vecs, what, **cfg):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
     counts = [builder.layer_len(i) for i in range(builder.num_layers)]
-    log(f"{what} build: n={len(vecs)} d={D} M={M} ef={BUILD_EF} wave={WAVE} expand={EXPAND} {cfg} "
+    log(f"{what} build: {element_type} n={len(vecs)} d={D} M={M} ef={BUILD_EF} wave={WAVE} expand={EXPAND} {cfg} "
         f"seconds={build_s} vectors_per_s={len(vecs) / build_s} layer_counts={counts}")
     if counts[-1] != len(vecs):
         fail(f"{what}: the bottom layer holds {counts[-1]} of {len(vecs)} elements")
@@ -591,7 +665,7 @@ def tiled_cache_path(torch, g, vecs, queries, gt, main_recalls):
     del builder
     loaded = g.load_granne(ipath, epath, device="cuda")
     serve = Granne(layers=loaded.layers, elements=loaded.elements.as_bf16()).with_neighbor_cache("tiled")
-    recalls = serve_sweep(torch, serve, queries, gt, N, "bf16+tiled cache")
+    recalls = serve_sweep(torch, batched(serve, queries), gt, N, "bf16+tiled cache")
     ef = next(e for e in EFS if recalls[e] >= TARGET_RECALL)
     if recalls[ef] < main_recalls[ef] - RECALL_SLACK:
         fail(f"the tiled cache-fed build's recall {recalls[ef]} at ef={ef} is more than {RECALL_SLACK} "
@@ -604,8 +678,8 @@ def tiled_cache_path(torch, g, vecs, queries, gt, main_recalls):
     f32 = Granne(layers=loaded.layers, elements=loaded.elements)
     f32_tab = Granne(layers=loaded.layers, elements=loaded.elements, nbr_vecs=make_neighbor_cache(
         loaded.layers.layers[-1], loaded.elements, rows=N, cache_dtype="f32"))
-    (p_ids, p_d), qps_plain = timed_search(torch, lambda: search_all(torch, f32, queries, ef))
-    (c_ids, c_d), qps_tab = timed_search(torch, lambda: search_all(torch, f32_tab, queries, ef))
+    (p_ids, p_d), qps_plain = timed_search(torch, lambda: search_all(torch, batched(f32, queries), ef))
+    (c_ids, c_d), qps_tab = timed_search(torch, lambda: search_all(torch, batched(f32_tab, queries), ef))
     p_ids = check_result(torch, p_ids, p_d, N, "the uncached f32 search")
     c_ids = check_result(torch, c_ids, c_d, N, "the f32-table search")
     agree = overlap(c_ids, p_ids)
@@ -618,19 +692,15 @@ def tiled_cache_path(torch, g, vecs, queries, gt, main_recalls):
     bf16 = Granne(layers=loaded.layers, elements=loaded.elements.as_bf16()).with_neighbor_cache("flat")
     unit_q = loaded.elements.prepare_queries(queries)
 
-    def reranked():
-        out = [
-            frontier.search_layers(
-                bf16.layers.layers, bf16.elements, bf16.elements.prepare_queries(queries[lo : lo + SERVE_B]),
-                ef=ef, num_neighbors=K, nbr_vecs=bf16.nbr_vecs, rerank=True, rerank_with=loaded.elements,
-                rerank_queries=unit_q[lo : lo + SERVE_B],
-            )
-            for lo in range(0, len(queries), SERVE_B)
-        ]
-        return torch.cat([i for i, _ in out]), torch.cat([d for _, d in out])
+    def reranked(lo, ef):
+        return frontier.search_layers(
+            bf16.layers.layers, bf16.elements, bf16.elements.prepare_queries(queries[lo : lo + SERVE_B]),
+            ef=ef, num_neighbors=K, nbr_vecs=bf16.nbr_vecs, rerank=True, rerank_with=loaded.elements,
+            rerank_queries=unit_q[lo : lo + SERVE_B],
+        )
 
-    (n_ids, n_d), qps_plain = timed_search(torch, lambda: search_all(torch, bf16, queries, ef))
-    (r_ids, r_d), qps_rr = timed_search(torch, reranked)
+    (n_ids, n_d), qps_plain = timed_search(torch, lambda: search_all(torch, batched(bf16, queries), ef))
+    (r_ids, r_d), qps_rr = timed_search(torch, lambda: search_all(torch, reranked, ef))
     r_plain = recall_at_k(check_result(torch, n_ids, n_d, N, "the bf16 flat-cache search"), gt)
     r_rr = recall_at_k(check_result(torch, r_ids, r_d, N, "the reranked bf16 flat-cache search"), gt)
     log(f"serve bf16+flat cache, rerank against f32: ef={ef} recall@{K}={r_rr} qps={qps_rr}; "
@@ -656,7 +726,144 @@ def flat_cache_path(torch, g, vecs, queries):
     log(f"gather_score_flat launches in the flat cache-fed build: {launches}")
     idx = builder.get_index()
     serve = Granne(layers=idx.layers, elements=idx.elements.as_bf16()).with_neighbor_cache("flat")
-    serve_sweep(torch, serve, queries, gt, FLAT_BUILD_N, f"flat cache-fed build n={FLAT_BUILD_N}, bf16+flat cache")
+    serve_sweep(torch, batched(serve, queries), gt, FLAT_BUILD_N,
+                f"flat cache-fed build n={FLAT_BUILD_N}, bf16+flat cache")
+    log(f"flat cache-fed build n={FLAT_BUILD_N}: self-recall@1={self_recall(torch, serve, sub)} "
+        f"over {SELF_RECALL_ROWS} rows (bf16+flat cache, ef={EFS[0]})")
+    return launches
+
+
+def self_recall(torch, index, rows) -> float:
+    """Self-recall@1 of the first SELF_RECALL_ROWS ``rows`` searched at EFS[0]."""
+    ids, _ = index.search_batch(rows[:SELF_RECALL_ROWS], max_search=EFS[0], num_neighbors=1)
+    torch.cuda.synchronize()
+    return float(np.mean(ids[:, 0].cpu().numpy() == np.arange(SELF_RECALL_ROWS)))
+
+
+def int8_ceiling(torch, el, queries, gt) -> float:
+    """Recall@K of an exact top-K under the codes' own scoring (exact
+    dequantized unit rows x f32 unit queries) against the f32 ground truth:
+    the most a search over these codes can reach."""
+    from granne_tpu_torch.ops import distance
+
+    rows = el.cache_rows_exact(torch.arange(len(el), device="cuda"))
+    qn = distance.normalize(torch.as_tensor(queries, device="cuda"))
+    ids = torch.cat([(qn[lo : lo + SERVE_B] @ rows.T).topk(K, dim=1).indices for lo in range(0, len(qn), SERVE_B)])
+    return recall_at_k(ids.cpu().numpy(), gt)
+
+
+def int8_path(torch, g, vecs, queries, gt):
+    """int8 elements end to end: GranneBuilder("angular_int") -> build ->
+    save/load (the i1 element file) -> four serving routes, the int8
+    ceilings, the tiled refusal, and the flat cache-fed int8 build.  Returns
+    K1's launches on this path."""
+    from granne_tpu_torch import AngularIntVectors, BuildConfig, build_layers
+    from granne_tpu_torch.index.granne import Granne
+    from granne_tpu_torch.ops import distance, frontier
+    from granne_tpu_torch.ops.kernels.nbr_score import gather_score_flat
+    from granne_tpu_torch.ops.nbr_cache import make_neighbor_cache
+
+    reset_launch_counts()  # count this path's launches only
+    builder, _ = build_index(torch, g, vecs, "int8", element_type="angular_int")
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    ipath, epath = os.path.join(out_dir, "index_i8.gtz"), os.path.join(out_dir, "elements_i8.gt")
+    builder.save_index(ipath, compressed=True)
+    builder.save_elements(epath)
+    loaded = g.load_granne(ipath, epath, device="cuda")
+    built = builder.get_index()
+    for a, b in zip(built.layers.as_numpy(), loaded.layers.as_numpy()):
+        if not np.array_equal(np.sort(a, axis=1), np.sort(b, axis=1)):
+            fail("the loaded int8 index differs from the built one")
+    el8 = loaded.elements
+    if not isinstance(el8, AngularIntVectors) or not torch.equal(el8.vectors, built.elements.vectors) \
+            or not torch.equal(el8.inv_norms, built.elements.inv_norms):
+        fail("the loaded int8 elements differ from the built ones")
+    log(f"int8 save/load: index {os.path.getsize(ipath)} bytes (compressed), "
+        f"elements {os.path.getsize(epath)} bytes (i1); codes and inv_norms equal")
+    del built, builder
+    layers = loaded.layers.layers
+    unit_q = distance.normalize(torch.as_tensor(queries, device="cuda"))
+
+    def dequantized_route(el, capped=True, rerank=True, descent_ef=4):
+        """bench.py's hnsw-i8-cache shape by default: the bf16 copy through the
+        flat cache, max_iters capped, the exact rerank against ``el``."""
+        dq = el.dequantized()
+        tab = make_neighbor_cache(layers[-1], dq, rows=N)
+
+        def search(lo, ef):
+            return frontier.search_layers(
+                layers, dq, dq.prepare_queries(queries[lo : lo + SERVE_B]), ef=ef, num_neighbors=K, expand=1,
+                descent_ef=descent_ef, max_iters=max(8, ef - 6) if capped else None, nbr_vecs=tab, rerank=rerank,
+                rerank_with=el, rerank_queries=unit_q[lo : lo + SERVE_B],
+            )
+        return search
+
+    ceiling = int8_ceiling(torch, el8, queries, gt)
+    el8r = AngularIntVectors.from_raw(vecs, rounding="nearest", device="cuda")
+    ceiling_rtn = int8_ceiling(torch, el8r, queries, gt)
+    log(f"int8 ceilings (exact top-{K} under the codes' own scoring): trunc recall@{K}={ceiling}, "
+        f"nearest recall@{K}={ceiling_rtn}")
+
+    r1 = serve_sweep(torch, lambda lo, ef: frontier.search_layers(
+        layers, el8, el8.prepare_queries(queries[lo : lo + SERVE_B]), ef=ef, num_neighbors=K, expand=4,
+        descent_ef=4), gt, N, "int8 uncached (expand 4, descent_ef 4)", need_bar=False)
+    serve = Granne(layers=loaded.layers, elements=el8).with_neighbor_cache("flat")
+    before = gather_score_flat.launches
+    r2 = serve_sweep(torch, batched(serve, queries), gt, N, "int8 + flat cache (K1, unit lanes)", need_bar=False)
+    if gather_score_flat.launches <= before:
+        fail("int8 flat-cache serving never launched gather_score_flat")
+    del serve
+    r3 = serve_sweep(torch, dequantized_route(el8), gt, N, "int8 dequantized bf16 + flat cache + rerank",
+                     need_bar=False)
+    for what, kw in (("default max_iters", {"capped": False}), ("no rerank", {"rerank": False}),
+                     ("descent_ef 1", {"descent_ef": 1})):  # what each part of that route's shape costs or buys
+        serve_sweep(torch, dequantized_route(el8, **kw), gt, N, f"int8 dequantized variant ({what})", need_bar=False)
+    r4 = serve_sweep(torch, dequantized_route(el8r), gt, N, "int8 nearest dequantized bf16 + flat cache + rerank",
+                     need_bar=False)
+    last = EFS[-1]
+    for what, r, ceil in (("K1", r2, ceiling), ("rerank", r3, ceiling), ("nearest rerank", r4, ceiling_rtn)):
+        if r[last] < ceil - I8_CEILING_SLACK:
+            fail(f"int8 {what} route: recall {r[last]} at ef={last} is more than {I8_CEILING_SLACK} "
+                 f"below its ceiling {ceil}")
+    for ef in EFS:
+        if r3[ef] < r2[ef] - I8_RERANK_SLACK:
+            fail(f"int8 rerank route recall {r3[ef]} trails the K1 route's {r2[ef]} by more than "
+                 f"{I8_RERANK_SLACK} at ef={ef}")
+    log(f"int8 routes at ef={last}: uncached {r1[last]}, K1 {r2[last]}, rerank {r3[last]}, "
+        f"nearest rerank {r4[last]}; ceilings trunc {ceiling}, nearest {ceiling_rtn}")
+    serve_launches = gather_score_flat.launches
+    del el8r
+
+    for what, refuse in (
+        ("serving", lambda: Granne(layers=loaded.layers, elements=el8).with_neighbor_cache("tiled")),
+        ("build", lambda: build_layers(el8, BuildConfig(num_neighbors=M, max_search=BUILD_EF, neighbor_cache=True,
+                                                        neighbor_cache_layout="tiled"))),
+    ):
+        try:
+            refuse()
+        except ValueError as e:
+            log(f"int8 + tiled {what} refused: {e}")
+        else:
+            fail(f"int8 + tiled {what} did not raise")
+    del loaded
+
+    sub = vecs[:FLAT_BUILD_N]
+    before = gather_score_flat.launches
+    builder, _ = build_index(torch, g, sub, "int8 flat cache-fed", element_type="angular_int",
+                             neighbor_cache=True, neighbor_cache_layout="flat")
+    build_launches = gather_score_flat.launches - before
+    if build_launches <= 0:
+        fail("the int8 flat cache-fed build never launched gather_score_flat")
+    idx = builder.get_index()
+    rec = self_recall(torch, Granne(layers=idx.layers, elements=idx.elements).with_neighbor_cache("flat"), sub)
+    log(f"int8 flat cache-fed build n={FLAT_BUILD_N}: self-recall@1={rec} over {SELF_RECALL_ROWS} rows "
+        f"(int8 + flat cache, ef={EFS[0]}); K1 launches {build_launches} in the build")
+    if rec < I8_SELF_RECALL:
+        fail(f"the int8 flat cache-fed build's self-recall@1 {rec} < {I8_SELF_RECALL}")
+    launches = gather_score_flat.launches
+    log(f"gather_score_flat launches in the int8 path: {launches} ({serve_launches} serving, "
+        f"{build_launches} in the cache-fed build)")
     return launches
 
 
@@ -852,6 +1059,8 @@ def main() -> None:
             fail(f"the port pulled in jax or the JAX package ({after})")
 
     rec = k1_phase(torch, base_lib)
+    rec.update(k1_int8_phase(torch))
+    rec["max_abs_err"] = max(rec["max_abs_err"], rec["int8_unit_lanes_max_abs_err"])
     no_jax("K1 phase")
     k2_rec = k2_phase(torch, base_lib)
     no_jax("K2 phase")
@@ -865,6 +1074,8 @@ def main() -> None:
     no_jax("tiled cache-fed path")
     flat_cache_path(torch, g, vecs, queries)
     no_jax("flat cache-fed path")
+    int8_launches = int8_path(torch, g, vecs, queries, gt)
+    no_jax("int8 path")
     ivf_launches, path_inputs = ivf_path(torch, g, vecs, queries, gt)
     no_jax("IVF path")
     path_times = ivf_times(torch, path_inputs, ivf_base_lib)
@@ -886,7 +1097,9 @@ def main() -> None:
 
     nbr_src = "granne_tpu_torch/csrc/nbr_score.cu"
     kernels = [
-        record("gather_score_flat", nbr_src, "granne_tpu/ops/pallas/nbr_score.py:342", launches, rec),
+        {**record("gather_score_flat", nbr_src, "granne_tpu/ops/pallas/nbr_score.py:342", launches, rec),
+         "int8_path_launches": int8_launches,
+         **{key: rec[key] for key in ("int8_unit_lanes_max_abs_err", "int8_code_lanes_max_scaled_err")}},
         record("gather_score", nbr_src, "granne_tpu/ops/pallas/nbr_score.py:130", k2_launches, k2_rec),
     ]
     for name, line in (("ivf_score_slots", 59), ("ivf_score_slots_grouped", 136), ("ivf_score_topk", 227)):

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .elements.angular import AngularVectors
+from .elements.angular_int import AngularIntVectors
 from .index import io as gio
 from .index.builder import BuildConfig, build_layers
 from .index.granne import Granne
@@ -47,14 +48,14 @@ from .ops import distance
 DEFAULT_MAX_SEARCH = 200
 DEFAULT_NUM_ELEMENTS = 10
 
-_ELEMENT_TYPES = {"angular": AngularVectors}
+_ELEMENT_TYPES = {"angular": AngularVectors, "angular_int": AngularIntVectors}
 
 
 def _element_class(element_type: str):
     if element_type not in _ELEMENT_TYPES:
         raise ValueError(
             f"element type {element_type!r} is not ported to granne_tpu_torch yet "
-            "(ported: 'angular'; ROADMAP.md, Queue 1 items 9-10)"
+            "(ported: 'angular', 'angular_int'; ROADMAP.md, Queue 1 item 10)"
         )
     return _ELEMENT_TYPES[element_type]
 
@@ -109,7 +110,8 @@ class GranneBuilder:
 
     @classmethod
     def from_elements(cls, elements, config: Optional[BuildConfig] = None, **kw) -> "GranneBuilder":
-        b = cls("angular", dim=elements.dim, config=config, device=elements.device, **kw)
+        kind = next((name for name, c in _ELEMENT_TYPES.items() if isinstance(elements, c)), type(elements).__name__)
+        b = cls(kind, dim=elements.dim, config=config, device=elements.device, **kw)
         b._elements = elements
         return b
 
@@ -190,7 +192,7 @@ class GranneBuilder:
         return self._layers.get_neighbors(layer, index) if self._layers is not None else []
 
     def get_element(self, index: int) -> np.ndarray:
-        """The (normalized) ingested element at ``index``."""
+        """The ingested element at ``index``: normalized f32, or int8 codes."""
         return self.get_index().get_element(index)
 
     def search(self, element, max_search: int = DEFAULT_MAX_SEARCH, num_elements: int = DEFAULT_NUM_ELEMENTS):

@@ -1,7 +1,8 @@
 """Carry an index across from the JAX package.
 
-``granne_tpu``'s ``LayerStack.as_numpy()`` and its ``AngularVectors.vectors``
-(as a numpy array) become the port's objects on ``device``; the tests use
+``granne_tpu``'s ``LayerStack.as_numpy()``, its ``AngularVectors.vectors``
+and its ``AngularIntVectors.vectors`` (int8 codes, with the container's
+``rounding``), as numpy arrays, become the port's objects on ``device``; the tests use
 this to run the port on JAX-built graphs.  The IVF and brute-force engines'
 arrays come across the same way (bf16 as numpy's extension ``bfloat16``
 dtype or as raw uint16 bits).  Files written by either package load in the other
@@ -11,10 +12,13 @@ only.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .elements.angular import AngularVectors
+from .elements.angular_int import AngularIntVectors
 from .index.granne import Granne
 from .index.graph import LayerStack
 from .index.ivf import IvfIndex
@@ -26,12 +30,21 @@ def layers_from_numpy(layer_arrays, device="cuda") -> LayerStack:
     return LayerStack.from_numpy(layer_arrays, device=device)
 
 
+def int8_elements_from_numpy(codes, rounding: str = "trunc", device="cuda") -> AngularIntVectors:
+    """int8 codes [n, d] and the quantizer that made them -> AngularIntVectors
+    (reciprocal norms recomputed, bit-equal to the JAX package's)."""
+    el = AngularIntVectors.from_quantized(np.asarray(codes, np.int8), device=device)
+    return dataclasses.replace(el, rounding=rounding)
+
+
 def granne_from_numpy(layer_arrays, vectors, device="cuda") -> Granne:
-    """Adjacency arrays + unit-norm f32 vectors [n, d] -> Granne."""
-    return Granne(
-        layers=layers_from_numpy(layer_arrays, device=device),
-        elements=AngularVectors.from_normalized(np.asarray(vectors, np.float32), device=device),
-    )
+    """Adjacency arrays + unit-norm f32 vectors [n, d] (or int8 codes) -> Granne."""
+    vectors = np.asarray(vectors)
+    if vectors.dtype == np.int8:
+        elements = int8_elements_from_numpy(vectors, device=device)
+    else:
+        elements = AngularVectors.from_normalized(np.asarray(vectors, np.float32), device=device)
+    return Granne(layers=layers_from_numpy(layer_arrays, device=device), elements=elements)
 
 
 def _tensor(arr, device) -> torch.Tensor:

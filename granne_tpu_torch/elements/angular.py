@@ -83,7 +83,10 @@ class AngularVectors(NeighborCacheScoring):
     def score_block(self, block: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
         return D.angular_dist_gathered(block, queries.to(block.dtype))
 
-    def dist_from_dots(self, dots: torch.Tensor) -> torch.Tensor:
+    def query_lanes(self, queries: torch.Tensor) -> torch.Tensor:
+        return queries.to(torch.bfloat16).contiguous()
+
+    def dist_from_dots_q(self, dots: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
         return torch.clamp_min(1.0 - dots.to(torch.float32), 0.0)
 
     def pairwise_from_vecs(self, vecs: torch.Tensor) -> torch.Tensor:

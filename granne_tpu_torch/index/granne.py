@@ -33,11 +33,10 @@ class Granne:
 
     def with_neighbor_cache(self, layout: str = "flat") -> "Granne":
         """Return a copy serving through a bottom-layer neighbor cache in
-        ``layout``: "flat" (K1) or "tiled" (K2, d <= 128)."""
-        from ..ops.nbr_cache import make_neighbor_cache, supports_cache
+        ``layout``: "flat" (K1) or "tiled" (K2, d <= 128; not for int8
+        elements)."""
+        from ..ops.nbr_cache import make_neighbor_cache
 
-        if not supports_cache(self.elements):
-            raise ValueError(f"{type(self.elements).__name__} cannot feed a neighbor cache")
         if len(self.layers) == 0:
             raise ValueError("an empty index has no layer to cache")
         tab = make_neighbor_cache(
@@ -73,10 +72,13 @@ class Granne:
         return self.layers.get_neighbors(layer, index)
 
     def get_element(self, index: int) -> np.ndarray:
+        """The container's own row: f32 unit vector, int8 codes for int8
+        elements (a bf16 copy's row comes back as f32: numpy has no bf16)."""
         n = len(self.elements)
         if not 0 <= index < n:
             raise IndexError(f"element index {index} out of range [0, {n})")
-        return self.elements.vectors[index].to(torch.float32).cpu().numpy()
+        row = self.elements.vectors[index]
+        return (row.to(torch.float32) if row.dtype == torch.bfloat16 else row).cpu().numpy()
 
     # -- search ----------------------------------------------------------------
 

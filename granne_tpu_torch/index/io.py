@@ -3,10 +3,13 @@
 The files are the JAX package's, byte for byte: a 1024-byte metadata block
 (ASCII magic + JSON) followed by the layers back to back, dense ``<i4`` or
 compressed by the shared C++ codec; elements are a separate file with the
-same metadata block and a dense ``<f4`` matrix.  Writes go to ``path.tmp``
-and are moved into place with ``os.replace``.
+same metadata block and a dense matrix: ``<f4`` for ``"angular"``, the
+int8 codes (``i1``) for ``"angular_int"``.  An int8 file does not record the
+container's ``rounding``, as in the JAX package: a loaded container extends
+with truncated codes.  Writes go to ``path.tmp`` and are moved into place
+with ``os.replace``.
 
-Only ``"angular"`` elements are ported; other element kinds raise.
+``"embeddings"`` elements are not ported yet; they raise.
 """
 
 from __future__ import annotations
@@ -131,31 +134,37 @@ def load_index(source, device="cuda") -> LayerStack:
 
 
 def save_elements(elements, path: str) -> None:
-    """Write an ``AngularVectors`` container (a bf16 copy is written as f32),
-    streaming the matrix to the host in bounded row chunks."""
+    """Write an ``AngularVectors`` container (a bf16 copy is written as f32)
+    or an ``AngularIntVectors`` one (its int8 codes), streaming the matrix
+    to the host in bounded row chunks."""
     from ..elements.angular import AngularVectors
+    from ..elements.angular_int import AngularIntVectors
 
-    if not isinstance(elements, AngularVectors):
+    if isinstance(elements, AngularVectors):
+        kind, dtype, cast = "angular", "<f4", torch.float32
+    elif isinstance(elements, AngularIntVectors):
+        kind, dtype, cast = "angular_int", "i1", torch.int8
+    else:
         raise TypeError(
             f"unsupported element container: {type(elements)!r} (granne_tpu_torch "
-            "saves angular elements only; ROADMAP.md, Queue 1 items 9-10)"
+            "saves angular and angular_int elements; ROADMAP.md, Queue 1 item 10)"
         )
     data = elements.vectors
     n, d = data.shape
     meta = {
         "granne_tpu_version": LIBRARY_VERSION,
         "version": SERIALIZATION_VERSION,
-        "type": "angular",
+        "type": kind,
         "count": int(n),
         "dim": int(d),
     }
-    step = max(1, _WRITE_CHUNK_BYTES // max(1, 4 * int(d)))
+    step = max(1, _WRITE_CHUNK_BYTES // max(1, np.dtype(dtype).itemsize * int(d)))
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         _write_metadata(f, ELEMENTS_MAGIC, meta)
         for lo in range(0, int(n), step):
-            chunk = data[lo : lo + step].to(torch.float32).cpu().numpy()
-            f.write(np.ascontiguousarray(chunk, dtype="<f4").tobytes())
+            chunk = data[lo : lo + step].to(cast).cpu().numpy()
+            f.write(np.ascontiguousarray(chunk, dtype=dtype).tobytes())
     os.replace(tmp, path)
 
 
@@ -167,13 +176,19 @@ def load_elements(source, device="cuda"):
     """Load an element file (path or bytes-like buffer) onto ``device``: the
     matrix is read through a memory map and uploaded whole."""
     from ..elements.angular import AngularVectors
+    from ..elements.angular_int import AngularIntVectors
 
     src = _Source(source)
     meta = _read_metadata(src.head(METADATA_LEN), ELEMENTS_MAGIC)
-    if meta["type"] != "angular":
+    kinds = {
+        "angular": ("<f4", AngularVectors.from_normalized),
+        "angular_int": ("i1", AngularIntVectors.from_quantized),
+    }
+    if meta["type"] not in kinds:
         raise ValueError(
             f"element type {meta['type']!r} is not ported to granne_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 items 9-10)"
+            "(ROADMAP.md, Queue 1 item 10)"
         )
-    raw = src.region("<f4", METADATA_LEN, (meta["count"], meta["dim"]))
-    return AngularVectors.from_normalized(np.array(raw), device=device)
+    dtype, make = kinds[meta["type"]]
+    raw = src.region(dtype, METADATA_LEN, (meta["count"], meta["dim"]))
+    return make(np.array(raw), device=device)

@@ -17,7 +17,9 @@ Candidates come from one of four places:
   ``ops.kernels.nbr_score.gather_score_flat`` (K1): one row read per
   expanded node yields the neighbor ids and their dots at once;
 * a tiled bf16 cache: ids from the adjacency, dots from the kernel
-  ``gather_score`` (K2) through ``nbr_cache.score_cached``;
+  ``gather_score`` (K2) through ``nbr_cache.score_cached``.  Both kernels
+  take ``elements.query_lanes(queries)``, made once a search, and their
+  dots become distances through ``elements.dist_from_dots_q``;
 * a flat f32 cache: one row gather yields the ids and exact f32 vectors,
   scored by ``elements.score_block`` (plain PyTorch: the JAX package has no
   kernel for it either); the seeds are scored from the same exact rows.
@@ -32,9 +34,8 @@ from __future__ import annotations
 
 import torch
 
-from ..elements.base import supports_cache
 from .kernels.nbr_score import gather_score_flat
-from .nbr_cache import row_vecs, score_cached, table_kind, unpack_ids
+from .nbr_cache import check_layout, row_vecs, score_cached, table_kind, unpack_ids
 from .topk import INF, UNUSED, merge_sorted_topk, sort_by_key
 
 _CHECK_EVERY = 4
@@ -62,7 +63,9 @@ def beam_search(
     Args:
       adj: int32[n_rows, M] adjacency with UNUSED=-1 padding.
       elements: an element container.
-      queries: prepared query batch [B, d] (``elements.prepare_queries``).
+      queries: prepared query batch of B queries (``elements.prepare_queries``:
+        a [B, d] tensor, or the container's own batch type such as
+        ``IntQueries``, read only through the container and ``.shape``).
       entry_ids: int32[B] or int32[B, K] entry points per query.
       ef: beam width (the reference's ``max_search``).
       expand: beam slots expanded per iteration.
@@ -88,10 +91,9 @@ def beam_search(
     kind = None
     if nbr_vecs is not None:
         kind = table_kind(nbr_vecs)
-        if not supports_cache(elements):
-            raise ValueError(f"{type(elements).__name__} cannot score a neighbor cache")
-        q_lanes = queries.to(torch.bfloat16).contiguous()
-        d_q = queries.shape[-1]
+        check_layout(elements, "tiled" if kind == "tiled" else "flat")
+        q_lanes = elements.query_lanes(queries)
+        d_q = elements.dim
         gather_budget = None  # cache rows are keyed by expanded node, not candidate
     G = EM if gather_budget is None else max(1, min(gather_budget, EM))
 
@@ -162,11 +164,11 @@ def beam_search(
 
         # 4. distances of the whole candidate block
         if kind == "flat-bf16":
-            cand_d = elements.dist_from_dots(dots)
+            cand_d = elements.dist_from_dots_q(dots, queries)
         elif kind == "flat-f32":
             cand_d = elements.score_block(row_vecs(crows, M, d_q).reshape(B, EM, d_q), queries)
         elif kind == "tiled":
-            cand_d = score_cached(nbr_vecs, sel_ids, q_lanes, elements, M)
+            cand_d = score_cached(nbr_vecs, sel_ids, queries, elements, M, lanes=q_lanes)
         else:
             cand_d = elements.dist_ids_to_queries(nbrs, queries)
         cand_d = torch.where(cand_valid, cand_d, INF)

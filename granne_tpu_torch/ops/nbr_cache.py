@@ -16,6 +16,8 @@ neighbor vectors in ONE contiguous row, in one of three encodings:
         lanes, rows padded to 8 vectors (the TPU's DMA granule); no ids, the
         beam reads them from the adjacency.  Scored by the kernel K2
         (``ops.kernels.nbr_score.gather_score``); requires d <= 128.
+        A container whose ``tiled_refusal`` is set (int8 elements)
+        cannot feed it.
 
 The flat tables are INTEGER tensors on purpose: ids whose low or high 16
 bits fall in [0x7F80, 0x8000) or [0xFF80, 0x10000) are NaN bit patterns as
@@ -61,6 +63,14 @@ def tiled_height(M: int) -> int:
     """Tiled cache-row height: M padded up to the TPU's 8-sublane DMA
     granule (kept so tables stay interchangeable with the JAX package)."""
     return -(-M // 8) * 8
+
+
+def check_layout(elements, layout: str) -> None:
+    """Raise ValueError unless ``elements`` can feed a cache in ``layout``."""
+    if not supports_cache(elements):
+        raise ValueError(f"{type(elements).__name__} cannot feed a neighbor cache")
+    if layout == "tiled" and elements.tiled_refusal is not None:
+        raise ValueError(f"{type(elements).__name__} cannot feed the tiled neighbor cache: {elements.tiled_refusal}")
 
 
 def pack_rows(vals: torch.Tensor, layout: str, ids: torch.Tensor | None = None) -> torch.Tensor:
@@ -116,8 +126,7 @@ def make_neighbor_cache(
         raise ValueError("cache_dtype='f32' is only supported for layout='flat'")
     if layout not in ("flat", "tiled"):
         raise ValueError(f"cache layout must be 'flat' or 'tiled', got {layout!r}")
-    if not supports_cache(elements):
-        raise ValueError(f"{type(elements).__name__} cannot feed a neighbor cache")
+    check_layout(elements, layout)
     n, M = adj.shape
     if rows is not None:
         n = min(n, rows)
@@ -152,19 +161,24 @@ def rows_to_vecs(tab: torch.Tensor, ids: torch.Tensor, M: int, d: int) -> torch.
     return rows[:, :M, :d]
 
 
-def score_cached(tab: torch.Tensor, sel_ids: torch.Tensor, queries: torch.Tensor, elements, M: int):
-    """Distances from queries [B, d] to the cached neighbors of their E
-    expanded nodes ``sel_ids`` [B, E]: f32[B, E*M].
+def score_cached(tab: torch.Tensor, sel_ids: torch.Tensor, queries, elements, M: int, lanes=None):
+    """Distances from the query batch (B queries) to the cached neighbors of
+    their E expanded nodes ``sel_ids`` [B, E]: f32[B, E*M].
 
-    A tiled table goes through K2 and ``dist_from_dots``; a flat table
-    through a row gather and ``elements.score_block``.
+    A tiled table goes through K2 on ``elements.query_lanes(queries)`` (or
+    ``lanes``, when the caller made them once for many calls, as the beam
+    does) and ``elements.dist_from_dots_q``; a flat table through a row
+    gather and ``elements.score_block``.
     """
     from .kernels.nbr_score import gather_score  # the kernel module reads this one's layout
 
     B, E = sel_ids.shape
     if table_kind(tab) == "tiled":
-        q = queries.to(torch.bfloat16).contiguous()
-        return elements.dist_from_dots(gather_score(tab, sel_ids.contiguous(), q, M=M))
-    d = queries.shape[-1]
+        check_layout(elements, "tiled")
+        if lanes is None:
+            lanes = elements.query_lanes(queries)
+        dots = gather_score(tab, sel_ids.contiguous(), lanes, M=M)
+        return elements.dist_from_dots_q(dots, queries)
+    d = elements.dim
     rows = tab.index_select(0, sel_ids.reshape(-1).clamp(0, tab.shape[0] - 1).long())
     return elements.score_block(row_vecs(rows, M, d).reshape(B, E * M, d), queries)

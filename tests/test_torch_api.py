@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import granne_tpu as J
+from granne_tpu.elements.embeddings import SumEmbeddings
 from granne_tpu.index import io as jio
 from granne_tpu_torch import AngularVectors, GranneBuilder, compute_distance, convert, load_granne
 from granne_tpu_torch import api
@@ -178,8 +179,11 @@ def test_builder_surface(rng, tmp_path):
     with pytest.raises(IndexError):
         b.get_element(120)
     assert b.get_neighbors(0, b.num_layers - 1) and all(0 <= x < 120 for x in b.get_neighbors(5, b.num_layers - 1))
+    b8 = GranneBuilder("angular_int", device="cpu")
+    b8.append(vecs[:3])
+    assert b8.elements.vectors.dtype == torch.int8 and len(b8) == 3
     with pytest.raises(ValueError, match="not ported"):
-        GranneBuilder("angular_int", device="cpu")
+        GranneBuilder("embeddings", device="cpu")
 
 
 def test_compute_distance_and_bad_files(rng, tmp_path):
@@ -192,9 +196,13 @@ def test_compute_distance_and_bad_files(rng, tmp_path):
     with pytest.raises(ValueError, match="bad magic"):
         io.load_index(str(bad), device="cpu")
     i8 = tmp_path / "i8.gt"
-    jio.save_elements(J.AngularIntVectors.from_raw(rng.standard_normal((5, 4)).astype(np.float32)), str(i8))
+    j8 = J.AngularIntVectors.from_raw(rng.standard_normal((5, 4)).astype(np.float32))
+    jio.save_elements(j8, str(i8))
+    assert np.array_equal(io.load_elements(str(i8), device="cpu").vectors.numpy(), np.asarray(j8.vectors))
+    emb = tmp_path / "emb.gt"
+    jio.save_elements(SumEmbeddings.from_parts(rng.standard_normal((6, 4)).astype(np.float32), [[0, 1], [2]]), str(emb))
     with pytest.raises(ValueError, match="not ported"):
-        io.load_elements(str(i8), device="cpu")
+        io.load_elements(str(emb), device="cpu")
     with pytest.raises(TypeError, match="unsupported"):
         io.save_elements(object(), str(tmp_path / "x.gt"))
 

@@ -1,5 +1,7 @@
 """The CUDA kernels on the card (K1, K2, K3, K4, K5) against their plain
-PyTorch versions, and the searches and builds that launch them.
+PyTorch versions, the searches and builds that launch them, and the int8
+elements on the card (exact integer dots, K1 on int8-provenance tables,
+the cache-fed int8 build, the element file).
 
 Needs an NVIDIA GPU and nvcc; every test skips elsewhere.  This file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -373,3 +375,126 @@ def test_ivf_search_on_card_matches_cpu(cuda):
         got = ids.cpu().numpy()
         overlap = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got, want)])
         assert overlap >= 0.99, (kw, overlap)
+
+
+# -- int8 elements ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [24, 100, distance.I8_EXACT_LANES, distance.I8_EXACT_LANES + 1, 2300])
+def test_i8_distances_on_card_are_the_exact_integer_dots(cuda, d):
+    """PyTorch has no int32 matrix product on CUDA: the int8 dots run as f32
+    products of upcast codes (chunked past I8_EXACT_LANES) and must be the
+    exact integers, equal to the CPU's and to numpy's int64 dots; the
+    distances agree with the CPU's within 2e-7."""
+    rng = np.random.default_rng(d)
+    vecs = rng.choice(np.array([-127, 127, 126, -3, 0], np.int8), (4, 6, d))
+    vecs[0, 0] = 127  # |dot| = d * 127^2: past 2^24 for d > 1040
+    q = vecs[:, 0].copy()
+    vecs[1, 2] = 0  # a zero row: distance 1
+    want = np.einsum("bcd,bd->bc", vecs.astype(np.int64), q.astype(np.int64)).astype(np.float32)
+    card = [torch.from_numpy(a).to(cuda) for a in (vecs, q)]
+    got = distance.i8_dots(card[0], card[1][:, None, :])[..., 0]
+    assert np.array_equal(got.cpu().numpy(), want)
+    cpu_inv, card_inv = distance.inv_norms_i8(torch.from_numpy(vecs)), distance.inv_norms_i8(card[0])
+    q_inv = distance.inv_norms_i8(torch.from_numpy(q))
+    assert torch.equal(card_inv.cpu(), cpu_inv)
+    pairs = (
+        (distance.i8_dist_gathered(card[0], card_inv, card[1], q_inv.to(cuda)),
+         distance.i8_dist_gathered(torch.from_numpy(vecs), cpu_inv, torch.from_numpy(q), q_inv)),
+        (distance.i8_pairwise_gathered(card[0], card_inv), distance.i8_pairwise_gathered(torch.from_numpy(vecs), cpu_inv)),
+        (distance.i8_dist_matrix(card[0][0], card[0][1]), distance.i8_dist_matrix(torch.from_numpy(vecs[0]), torch.from_numpy(vecs[1]))),
+    )
+    for on_card, on_cpu in pairs:
+        assert float((on_card.cpu() - on_cpu).abs().max()) <= 2e-7
+    assert bool((pairs[0][0][1, 2] == 1.0).all())
+
+
+def _int8_table(dev, n, M, d, seed):
+    """An int8 container and its flat bf16 cache table over half-unfilled rows."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    el = g.AngularIntVectors.from_raw(torch.randn((n, d), generator=gen, device=dev), device=dev)
+    adj = torch.randint(0, n, (n, M), generator=gen, device=dev, dtype=torch.int32)
+    adj[::2, M // 2 :] = -1
+    return el, make_neighbor_cache(adj, el), gen
+
+
+@pytest.mark.parametrize("n,M,d,B,E", [(200_000, 20, 100, 1024, 1), (200_000, 20, 100, 1024, 4), (400, 8, 121, 32, 2)])
+def test_k1_int8_table_matches_plain(cuda, n, M, d, B, E):
+    """K1 on a table of int8-provenance rows with both lane forms of the
+    int8 queries: the exact unit query in bf16 (within 1e-4), and the int8
+    codes as bf16 (up to 127; within 1e-4 times each query's lane norm)."""
+    el, tab, gen = _int8_table(cuda, n, M, d, 0)
+    sel = torch.randint(-3, n, (B, E), generator=gen, device=cuda, dtype=torch.int32)
+    q = el.prepare_queries(torch.randn((B, d), generator=gen, device=cuda))
+    for queries in (q, type(q)(q.vecs, q.inv_norms)):
+        lanes = el.query_lanes(queries)
+        before = gather_score_flat.launches
+        dots, nbrs = gather_score_flat(tab, sel, lanes, M=M, d=d)
+        torch.cuda.synchronize()
+        assert gather_score_flat.launches == before + 1
+        ref_d, ref_n = gather_score_flat_reference(tab, sel, lanes, M=M, d=d)
+        assert torch.equal(nbrs, ref_n) and torch.isfinite(dots).all()
+        scale = lanes.float().norm(dim=1, keepdim=True)
+        assert float(((dots - ref_d).abs() / scale).max()) <= 1e-4
+    assert float(el.query_lanes(type(q)(q.vecs, q.inv_norms)).abs().max()) == 127.0
+
+
+def test_k1_int8_launches_capture_in_a_cuda_graph(cuda):
+    n, M, d, B, E = 20_000, 20, 100, 256, 4
+    el, tab, gen = _int8_table(cuda, n, M, d, 6)
+    sels = [torch.randint(-3, n, (B, E), generator=gen, device=cuda, dtype=torch.int32) for _ in range(3)]
+    q = el.prepare_queries(torch.randn((B, d), generator=gen, device=cuda))
+    lanes = el.query_lanes(type(q)(q.vecs, q.inv_norms))  # code lanes, up to 127
+    before = gather_score_flat.launches
+    _graph_replays_eager(lambda t, s, qq: gather_score_flat(t, s, qq, M=M, d=d), tab, sels, lanes)
+    assert gather_score_flat.launches == before + 3 + 3 + 3
+
+
+def test_int8_cache_fed_build_on_card_matches_cpu(cuda):
+    """A flat cache-fed int8 build on the card launches K1 and gives the CPU
+    build's graph (per-layer edge Jaccard >= 0.99) and self-recall@1 >=
+    0.95; int8 flat-cache serving on the card overlaps the CPU's >= 0.99;
+    int8 + the tiled layout raises ValueError on the card too."""
+    rng = np.random.default_rng(2)
+    vecs = rng.standard_normal((2000, 48)).astype(np.float32)
+    cfg = g.BuildConfig(num_neighbors=12, max_search=32, neighbor_cache=True)
+    card_el = g.AngularIntVectors.from_raw(vecs, device=cuda)
+    cpu_el = g.AngularIntVectors.from_raw(vecs, device="cpu")
+    before = gather_score_flat.launches
+    card = g.build_layers(card_el, cfg)
+    torch.cuda.synchronize()
+    assert gather_score_flat.launches > before
+    cpu = g.build_layers(cpu_el, cfg)
+    assert card.counts == cpu.counts
+    for a, b in zip(card.as_numpy(), cpu.as_numpy()):
+        assert _jaccard(a, b) >= 0.99
+    serve = Granne(layers=card, elements=card_el).with_neighbor_cache()
+    before = gather_score_flat.launches
+    ids, d = serve.search_batch(vecs[:256], max_search=32, num_neighbors=5)
+    assert gather_score_flat.launches > before and torch.isfinite(d).all()
+    assert float(np.mean(ids[:, 0].cpu().numpy() == np.arange(256))) >= 0.95
+    cids, _ = Granne(layers=cpu, elements=cpu_el).with_neighbor_cache().search_batch(vecs[:256], max_search=32, num_neighbors=5)
+    overlap = np.mean([len(set(a) & set(c)) / 5 for a, c in zip(ids.cpu().numpy(), cids.numpy())])
+    assert overlap >= 0.99
+    with pytest.raises(ValueError, match="tiled"):
+        Granne(layers=card, elements=card_el).with_neighbor_cache("tiled")
+
+
+def test_int8_element_file_round_trip_on_card(cuda, tmp_path):
+    """An "angular_int" element file written from the card loads on the card
+    and on the CPU with equal codes and norms, and its bytes equal the file
+    written from the CPU copy."""
+    vecs = np.random.default_rng(3).standard_normal((5000, 100)).astype(np.float32)
+    card_el = g.AngularIntVectors.from_raw(vecs, device=cuda)
+    cpu_el = g.AngularIntVectors.from_raw(vecs, device="cpu")
+    assert torch.equal(card_el.vectors.cpu(), cpu_el.vectors) and torch.equal(card_el.inv_norms.cpu(), cpu_el.inv_norms)
+    from granne_tpu_torch.index import io
+
+    card_path, cpu_path = str(tmp_path / "card.gt"), str(tmp_path / "cpu.gt")
+    io.save_elements(card_el, card_path)
+    io.save_elements(cpu_el, cpu_path)
+    assert open(card_path, "rb").read() == open(cpu_path, "rb").read()
+    loaded = io.load_elements(card_path, device=cuda)
+    assert loaded.vectors.is_cuda and torch.equal(loaded.vectors, card_el.vectors)
+    assert torch.equal(loaded.inv_norms, card_el.inv_norms)
+    assert torch.equal(io.load_elements(card_path, device="cpu").vectors, cpu_el.vectors)
