@@ -80,6 +80,36 @@ In the order it runs:
    (``slot_groups`` at nprobe 4: keys in sorted runs, 1,520 slots), each
    with its own bound (``path_keys_*`` in the kernel records).
 
+10. Reorder on the card: step 5's saved 200k f32 pair loaded on the card
+    and renumbered by ``Granne.reorder()`` (entrypoint trails through the
+    upper layers on the card, seconds to a ``synchronize``); the order must
+    be a permutation that keeps every layer's band, and 1,024 sampled rows a
+    layer must be isomorphic to the original rows.  The reordered graph is
+    served as bf16 through a fresh flat cache (K1) at every ef, ids mapped
+    back through ``order``; recall@10 must reach 0.95 at some ef <= 120 and
+    the sweep must have launched K1 (``reorder_path_launches``).  The
+    reordered pair is saved, and the original graph saved dense.
+11. Host serving: ``HostGranne`` (the C++ search of ``csrc/codec.cpp`` over
+    memory-mapped files, CPU threads) on the original and the reordered
+    pair, bench.py's baseline shape (the first 500 queries, one thread,
+    K 10) at every ef with recall and QPS, then every core at step 5's bar
+    ef over all 4,096 queries; the dense index once; the int8 path's ``i1``
+    pair at ef 120 beside its trunc ceiling over the same 500 queries.
+    One-thread recall at ef 120 must reach 0.95 on both pairs.  The QPS of
+    the two pairs comes from one call, so their ratio is logged.
+12. The read-write builder on the card: ``RwGranneBuilder`` over the first
+    20,000 vectors (step 5's build config, its final size declared so the
+    layers follow the schedule), two threads inserting 5,120 rows each in
+    ``insert_batch`` calls of 512 while a third searches the held-out
+    queries; after every call a thread must find >= 0.98 of its rows at
+    distance <= 1e-4 (the visibility contract).  Then ``flush``: 30,240
+    elements, the schedule's layer counts, self-recall@1 >= 0.98 over all
+    of them; ``save`` while searches run, reload, one ``HostGranne`` serve
+    of the files.  A failed thread fails the run.
+
+Numbers of steps 10-12 are logged beside ``nvidia-smi``'s card name and
+power limit, host figures also beside the host's CPU model and threads.
+
 Every kernel and its plain version are timed on the same inputs in turns
 (plain, kernel, kernel, plain) two ways: ``device_ms`` / ``plain_ms``, CUDA
 events around replays of one CUDA graph that holds all the timed calls
@@ -105,6 +135,7 @@ from __future__ import annotations
 
 import json
 import os
+import platform
 import subprocess
 import sys
 import time
@@ -149,6 +180,13 @@ IVF_CASES = (
 )
 IVF_SLOT_CAP, IVF_GROUP = 32, 8
 PATH_NPROBE = 4  # the IVF path's slots for K3-K5 timed on its own keys (the first nprobe reaching 0.95)
+HOST_QUERIES = 500  # bench.py's single-core baseline queries (bench.py:574-591)
+# the read-write phase: base, rows a thread, rows a call.  The base is cut
+# from 50,000: every flush re-inserts and re-prunes the whole bottom layer
+# (the resumable build's semantics), which took 15-19 s a flush at 50,000
+# on an H100 80GB HBM3 (700 W) with the search thread running beside it
+RW_BASE, RW_PER_THREAD, RW_CALL = 20_000, 5_120, 512
+RW_VISIBLE = 0.98  # the visibility bar: inserted rows found right after insert_batch returns
 
 
 def log(msg: str) -> None:
@@ -962,6 +1000,258 @@ def ivf_path(torch, g, vecs, queries, gt):
     return launches, path_inputs
 
 
+def host_tag(card, threads) -> str:
+    """The card's name and power limit, and for a host figure the CPU (as
+    ``lscpu`` names it: vendor, model name, family and model numbers) and
+    the thread count, to stand beside each number."""
+    cpu = platform.machine()
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        f = dict(line.split(":", 1) for line in out.splitlines() if ":" in line)
+        f = {k.strip(): v.strip() for k, v in f.items()}
+        cpu = (f"{f.get('Vendor ID', '?')} {f.get('Model name', '?')} "
+               f"(family {f.get('CPU family', '?')}, model {f.get('Model', '?')})")
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return f"[{card}; host {cpu}, {os.cpu_count()} cores, {threads} threads]"
+
+
+def reorder_phase(torch, g, queries, gt, main_recalls, card):
+    """Phase a: the main path's saved 200k f32 graph, loaded on the card,
+    reordered by ``Granne.reorder()`` (trails on the card); the order, the
+    bands and a sample of rows checked; the reordered graph served as bf16
+    through a fresh flat cache (K1), ids mapped back through ``order``; the
+    reordered pair saved.  Returns (K1 launches, (index, elements) paths,
+    order)."""
+    from granne_tpu_torch.index import io
+    from granne_tpu_torch.index.granne import Granne
+    from granne_tpu_torch.ops.kernels.nbr_score import gather_score_flat
+
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    loaded = g.load_granne(os.path.join(out_dir, "index.gtz"), os.path.join(out_dir, "elements.gt"), device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    reordered, order = loaded.reorder()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    if not np.array_equal(np.sort(order), np.arange(N)):
+        fail("the reorder's order is not a permutation")
+    counts = loaded.layers.counts
+    if reordered.layers.counts != counts or reordered.nbr_vecs is not None:
+        fail(f"the reordered layer counts {reordered.layers.counts} differ from {counts} (or it kept a cache)")
+    prev = 0
+    for count in counts:
+        if not np.array_equal(np.sort(order[prev:count]), np.arange(prev, count)):
+            fail(f"the reorder moved ids across the band [{prev}, {count})")
+        prev = count
+    order_t = torch.as_tensor(order, device="cuda")
+    rng = np.random.default_rng(0)
+    for li, (old, new, count) in enumerate(zip(loaded.layers.layers, reordered.layers.layers, counts)):
+        rows = torch.as_tensor(rng.choice(count, min(count, 1024), replace=False), device="cuda")
+        mapped = new[rows].long()
+        mapped = torch.where(mapped >= 0, order_t[mapped.clamp_min(0)], -1)
+        want = old[order_t[rows]].long()
+        if not torch.equal(mapped.sort(dim=1).values, want.sort(dim=1).values):
+            fail(f"reordered layer {li} is not isomorphic to the original on a sample of rows")
+    log(f"reorder on the card: n={N} layer_counts={list(counts)} seconds={secs} "
+        f"(trails through {min(8, len(counts) - 1)} upper layers); order a permutation, bands kept, "
+        f"1,024 sampled rows a layer isomorphic [{card}]")
+    if not torch.equal(reordered.elements.vectors, loaded.elements.vectors[order_t]):
+        fail("the reordered elements are not the original rows in the new order")
+
+    reset_launch_counts()  # count the reordered sweep's launches only
+    serve = Granne(layers=reordered.layers, elements=reordered.elements.as_bf16()).with_neighbor_cache("flat")
+
+    def search(lo, ef):  # ids in the original numbering
+        ids, d = serve.search_batch(queries[lo : lo + SERVE_B], max_search=ef, num_neighbors=K)
+        return torch.where(ids >= 0, order_t[ids.clamp_min(0).long()].to(torch.int32), ids), d
+
+    recalls = serve_sweep(torch, search, gt, N, "reordered bf16+flat cache")
+    log("reordered vs original recall@10 by ef: "
+        + ", ".join(f"ef={ef} {recalls[ef]} vs {main_recalls[ef]}" for ef in EFS) + f" [{card}]")
+    launches = gather_score_flat.launches
+    if launches <= 0:
+        fail("the reordered graph's sweep never launched gather_score_flat")
+    log(f"gather_score_flat launches in the reordered sweep: {launches}")
+    paths = (os.path.join(out_dir, "index_reordered.gtz"), os.path.join(out_dir, "elements_reordered.gt"))
+    reordered.save_index(paths[0], compressed=True)
+    reordered.save_elements(paths[1])
+    io.save_index(loaded.layers, os.path.join(out_dir, "index_dense.gt"), compressed=False)
+    log(f"reordered pair saved: index {os.path.getsize(paths[0])} bytes (compressed), "
+        f"elements {os.path.getsize(paths[1])} bytes; the original graph saved dense for phase b")
+    return launches, paths, order
+
+
+def host_phase(torch, g, queries, gt, main_recalls, reordered_paths, order, card):
+    """Phase b: ``HostGranne`` (the C++ search over memory-mapped files, CPU
+    threads) on the main path's pair and the reordered pair: bench.py's
+    baseline shape (the first HOST_QUERIES queries, one thread, K 10) at
+    every ef, then every core at the main path's bar ef over all queries,
+    the dense index once, and the int8 path's pair at ef 120 against its
+    trunc ceiling over the same queries."""
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    q, q_gt = queries[:HOST_QUERIES], gt[:HOST_QUERIES]
+    bar_ef = next(ef for ef in EFS if main_recalls[ef] >= TARGET_RECALL)
+    pairs = (("original", (os.path.join(out_dir, "index.gtz"), os.path.join(out_dir, "elements.gt")), None),
+             ("reordered", reordered_paths, order))
+
+    def run(host, qs, ef, threads, back):
+        t = time.perf_counter()
+        ids, d = host.search_batch(qs, max_search=ef, num_neighbors=K, num_threads=threads)
+        secs = time.perf_counter() - t
+        if ids.shape != (len(qs), K) or ids.min() < -1 or ids.max() >= N or not np.isfinite(d[ids >= 0]).all():
+            fail(f"malformed HostGranne result (shape {ids.shape})")
+        return (ids if back is None else np.where(ids >= 0, back[np.maximum(ids, 0)], -1)), len(qs) / secs
+
+    qps_by = {}
+    for what, (ipath, epath), back in pairs:
+        host = g.HostGranne(ipath, epath)
+        for ef in EFS:
+            ids, qps = run(host, q, ef, 1, back)
+            r = recall_at_k(ids, q_gt)
+            qps_by[what, ef] = qps
+            log(f"host {what} (compressed, mmap): ef={ef} recall@{K}={r} qps={qps} "
+                f"({HOST_QUERIES} queries) {host_tag(card, 1)}")
+            if ef == 120 and r < TARGET_RECALL:
+                fail(f"HostGranne on the {what} files: recall@{K} {r} < {TARGET_RECALL} at ef 120, one thread")
+        threads = os.cpu_count()
+        ids, qps = run(host, queries, bar_ef, threads, back)
+        log(f"host {what} (compressed, mmap): ef={bar_ef} recall@{K}={recall_at_k(ids, gt)} qps={qps} "
+            f"({N_QUERIES} queries) {host_tag(card, threads)}")
+    log("host reordered/original one-thread qps by ef (one call): "
+        + ", ".join(f"ef={ef} {qps_by['reordered', ef] / qps_by['original', ef]}" for ef in EFS))
+    host = g.HostGranne(os.path.join(out_dir, "index_dense.gt"), os.path.join(out_dir, "elements.gt"))
+    ids, qps = run(host, q, bar_ef, 1, None)
+    log(f"host original (dense, mmap): ef={bar_ef} recall@{K}={recall_at_k(ids, q_gt)} qps={qps} "
+        f"({HOST_QUERIES} queries) {host_tag(card, 1)}")
+
+    ipath, epath = os.path.join(out_dir, "index_i8.gtz"), os.path.join(out_dir, "elements_i8.gt")
+    host = g.HostGranne(ipath, epath)
+    ids, qps = run(host, q, 120, 1, None)
+    ceiling = int8_ceiling(torch, g.load_granne(ipath, epath, device="cuda").elements, q, q_gt)
+    log(f"host int8 (i1, compressed, mmap): ef=120 recall@{K}={recall_at_k(ids, q_gt)} qps={qps} "
+        f"trunc ceiling {ceiling} ({HOST_QUERIES} queries) {host_tag(card, 1)}")
+
+
+def rw_phase(torch, g, vecs, queries, card):
+    """Phase c: ``RwGranneBuilder`` on the card over the first RW_BASE
+    vectors (the main path's build config, its final size declared); two
+    threads insert RW_PER_THREAD rows each in calls of RW_CALL and check
+    after every call that they find the rows just inserted (self top-1),
+    while a third searches held-out queries the whole time; then a flush,
+    the count, the schedule and self-recall@1 over every element, a save
+    while searches run, a reload, and one HostGranne serve of the files."""
+    import threading
+
+    from granne_tpu_torch.index import schedule
+
+    total = RW_BASE + 2 * RW_PER_THREAD
+    cfg = g.BuildConfig(num_neighbors=M, max_search=BUILD_EF, wave_size=WAVE, expand=EXPAND,
+                        expected_num_elements=total)
+    t = time.perf_counter()
+    rw = g.RwGranneBuilder(g.AngularVectors.from_raw(vecs[:RW_BASE], device="cuda"), cfg)
+    torch.cuda.synchronize()
+    log(f"rw base build: n={RW_BASE} seconds={time.perf_counter() - t} [{card}]")
+
+    flush_s, hits, errors, searched = [], [], [], [0]
+    stop = threading.Event()
+    flush = rw.flush
+
+    def timed_flush():  # every flush, also those insert_batch starts
+        t = time.perf_counter()
+        flush()
+        torch.cuda.synchronize()
+        flush_s.append(time.perf_counter() - t)
+
+    rw.flush = timed_flush
+
+    def guarded(fn):
+        def body():
+            try:
+                fn()
+            except BaseException as e:  # re-raised by the main thread
+                errors.append(e)
+                stop.set()
+        return threading.Thread(target=body)
+
+    def inserter(lo):
+        for a in range(lo, lo + RW_PER_THREAD, RW_CALL):
+            if stop.is_set():
+                return
+            rows = vecs[a : a + RW_CALL]
+            rw.insert_batch(rows)
+            _, d = rw.search_batch(rows, max_search=EFS[0], num_neighbors=1)
+            hits.append(float((d[:, 0] <= 1e-4).float().mean()))
+
+    def searcher():
+        while not stop.is_set():
+            lo = searched[0] % N_QUERIES
+            ids, d = rw.search_batch(queries[lo : lo + SERVE_B], max_search=EFS[0], num_neighbors=K)
+            if tuple(ids.shape) != (SERVE_B, K) or not bool(torch.isfinite(d[ids >= 0]).all()):
+                raise RuntimeError(f"malformed search result during inserts: {tuple(ids.shape)}")
+            searched[0] += SERVE_B
+
+    reader = guarded(searcher)
+    writers = [guarded(lambda lo=lo: inserter(lo)) for lo in (RW_BASE, RW_BASE + RW_PER_THREAD)]
+    t = time.perf_counter()
+    reader.start()
+    for w in writers:
+        w.start()
+    for w in writers:
+        w.join()
+    insert_s = time.perf_counter() - t
+    stop.set()
+    reader.join()
+    if errors:
+        fail(f"a read-write builder thread failed: {errors[0]!r}")
+    visible = min(hits)
+    log(f"rw inserts: 2 threads x {RW_PER_THREAD} rows in calls of {RW_CALL}, seconds={insert_s}, "
+        f"flushes={len(flush_s)} flush_seconds={flush_s} (sum {sum(flush_s)}), visible self-top-1 "
+        f"min {visible} mean {float(np.mean(hits))} over {len(hits)} calls, {searched[0]} queries searched "
+        f"meanwhile (ef {EFS[0]}, batch {SERVE_B}) [{card}]")
+    if visible < RW_VISIBLE:
+        fail(f"an insert_batch's rows were found at {visible} < {RW_VISIBLE} right after it returned")
+    rw.flush()
+    index = rw.get_index()
+    counts = [index.layer_len(i) for i in range(index.num_layers)]
+    if rw.indexed_elements != total or counts != schedule.layer_counts(total, cfg.layer_multiplier):
+        fail(f"rw: {rw.indexed_elements} indexed, layer counts {counts}; want {total} and the schedule")
+    hit = 0
+    for lo in range(0, total, SERVE_B):
+        ids, _ = index.search_batch(index.elements.vectors[lo : lo + SERVE_B], max_search=EFS[0], num_neighbors=1)
+        hit += int((ids[:, 0] == torch.arange(lo, lo + len(ids), device="cuda")).sum())
+    rec = hit / total
+    log(f"rw after flush: indexed {total}, layer_counts={counts}, self-recall@1={rec} over all {total} "
+        f"(ef {EFS[0]}) [{card}]")
+    if rec < RW_VISIBLE:
+        fail(f"rw self-recall@1 {rec} < {RW_VISIBLE}")
+
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    ipath, epath = os.path.join(out_dir, "index_rw.gtz"), os.path.join(out_dir, "elements_rw.gt")
+    stop.clear()
+    searched[0] = 0
+    reader = guarded(searcher)
+    reader.start()
+    t = time.perf_counter()
+    rw.save(ipath, epath)
+    save_s = time.perf_counter() - t
+    stop.set()
+    reader.join()
+    if errors:
+        fail(f"the search thread failed during save: {errors[0]!r}")
+    loaded = g.load_granne(ipath, epath, device="cuda")
+    if len(loaded) != total or not torch.equal(loaded.elements.vectors, index.elements.vectors):
+        fail("the saved read-write index does not load back as it was")
+    host = g.HostGranne(ipath, epath)
+    ids, _ = host.search_batch(vecs[:HOST_QUERIES], max_search=EFS[0], num_neighbors=1)
+    host_rec = float(np.mean(ids[:, 0] == np.arange(HOST_QUERIES)))
+    log(f"rw save under searches: seconds={save_s} ({searched[0]} queries searched meanwhile); reloaded "
+        f"{len(loaded)} elements; HostGranne self-recall@1={host_rec} over {HOST_QUERIES} base rows "
+        f"(ef {EFS[0]}) {host_tag(card, 1)}")
+    if host_rec < RW_VISIBLE:
+        fail(f"HostGranne on the saved read-write index: self-recall@1 {host_rec} < {RW_VISIBLE}")
+
+
 def ivf_profile(torch, ivf, queries, nprobe):
     """One warm ``search_batch`` of every query per route (K4, fused K5)
     under ``torch.profiler``: host wall (a second, unprofiled call),
@@ -1081,6 +1371,12 @@ def main() -> None:
     path_times = ivf_times(torch, path_inputs, ivf_base_lib)
     log(f"K3/K4/K5 on the IVF path's own slots (nprobe {PATH_NPROBE}, S={path_inputs[3].shape[0]}): {path_times}")
     del path_inputs
+    reorder_launches, reordered_paths, order = reorder_phase(torch, g, queries, gt, main_recalls, smi)
+    no_jax("reorder phase")
+    host_phase(torch, g, queries, gt, main_recalls, reordered_paths, order, smi)
+    no_jax("host serving phase")
+    rw_phase(torch, g, vecs, queries, smi)
+    no_jax("read-write builder phase")
 
     def record(name, source, replaces, n_launches, r):
         return {
@@ -1098,7 +1394,7 @@ def main() -> None:
     nbr_src = "granne_tpu_torch/csrc/nbr_score.cu"
     kernels = [
         {**record("gather_score_flat", nbr_src, "granne_tpu/ops/pallas/nbr_score.py:342", launches, rec),
-         "int8_path_launches": int8_launches,
+         "int8_path_launches": int8_launches, "reorder_path_launches": reorder_launches,
          **{key: rec[key] for key in ("int8_unit_lanes_max_abs_err", "int8_code_lanes_max_scaled_err")}},
         record("gather_score", nbr_src, "granne_tpu/ops/pallas/nbr_score.py:130", k2_launches, k2_rec),
     ]

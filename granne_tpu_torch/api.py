@@ -124,6 +124,14 @@ class GranneBuilder:
         b._layers = gio.load_index(index_path, device=device)
         return b
 
+    @classmethod
+    def from_bytes(
+        cls, index_bytes, elements_bytes, config: Optional[BuildConfig] = None, device="cuda", **kw
+    ) -> "GranneBuilder":
+        """Resume building from caller-owned buffers of the two files
+        (``GranneBuilder::from_bytes``, src/index/mod.rs:430-446)."""
+        return cls.from_index(index_bytes, elements_bytes, config=config, device=device, **kw)
+
     # -- element ingestion -------------------------------------------------
 
     def append(self, vector) -> None:

@@ -102,6 +102,12 @@ class AngularVectors(NeighborCacheScoring):
         v = self.get(ids).to(torch.float32)
         return torch.clamp_min(1.0 - torch.sum(v * v, dim=-1), 0.0)
 
+    def permute(self, order) -> "AngularVectors":
+        """A new container whose row ``i`` is this one's row ``order[i]``
+        (rows gathered on the container's device, in its dtype)."""
+        order = torch.as_tensor(order, device=self.device).long()
+        return dataclasses.replace(self, vectors=self.vectors.index_select(0, order))
+
     def extend(self, raw) -> "AngularVectors":
         """Functional append: a new container; this one is left as it is."""
         new = D.normalize(D.as_f32(raw, self.device)).to(self.vectors.dtype)

@@ -61,6 +61,11 @@ class ElementContainer(Protocol):
         (the zero-element skip rule of the build)."""
         ...
 
+    def permute(self, order) -> "ElementContainer":
+        """A new container whose element ``i`` is this one's ``order[i]``
+        (``index.reorder``)."""
+        ...
+
 
 class NeighborCacheScoring(abc.ABC):
     """Capability: the container can fill and score a neighbor-vector cache

@@ -80,6 +80,11 @@ class Granne:
         row = self.elements.vectors[index]
         return (row.to(torch.float32) if row.dtype == torch.bfloat16 else row).cpu().numpy()
 
+    def get_internal_element(self, index: int) -> np.ndarray:
+        """The element as the index stores it (py/src/lib.rs:255-258): for the
+        dense containers ported so far, ``get_element``."""
+        return self.get_element(index)
+
     # -- search ----------------------------------------------------------------
 
     def search_batch(
@@ -107,3 +112,27 @@ class Granne:
         ids = ids[0].cpu().numpy()
         d = d[0].cpu().numpy()
         return [(int(i), float(x)) for i, x in zip(ids, d) if i >= 0]
+
+    # -- reordering (Granne::reorder, src/index/reorder.rs:59-82) --------------
+
+    def reorder(self, order=None):
+        """Return (reordered index, order) with ``order[new_id] = old_id``.
+
+        ``order=None`` computes the entrypoint-trail locality order on the
+        elements' device; a given permutation is applied as it is.  The
+        reordered index carries no neighbor cache (a table of the old ids
+        would score the wrong rows): call ``with_neighbor_cache`` on it again.
+        """
+        from .reorder import reorder_index
+
+        layers, elements, order = reorder_index(self.layers, self.elements, order)
+        return Granne(layers=layers, elements=elements), order
+
+    def reorder_by_keys(self, keys):
+        """Reorder by external per-element sort keys [n] or [n, K]
+        (reorder.rs:90-125); as ``reorder``, without a neighbor cache.
+        Returns (reordered index, order) with ``order[new_id] = old_id``."""
+        from .reorder import reorder_by_keys
+
+        layers, elements, order = reorder_by_keys(self.layers, self.elements, keys)
+        return Granne(layers=layers, elements=elements), order

@@ -15,6 +15,7 @@ with ``os.replace``.
 from __future__ import annotations
 
 import json
+import mmap as _mmap
 import os
 
 import numpy as np
@@ -29,6 +30,17 @@ LIBRARY_VERSION = "0.1.0"
 SERIALIZATION_VERSION = 1
 
 _WRITE_CHUNK_BYTES = 256 << 20  # bound host memory while streaming a matrix out
+
+
+def _madvise_random(arr: np.memmap) -> None:
+    """Advise the kernel that reads of ``arr``'s map are random (the
+    reference's madvise(Random), src/index/mod.rs:123-124): readahead is
+    wasted on the row gathers of a graph search.  Best effort: not every
+    platform has madvise."""
+    try:
+        arr._mmap.madvise(_mmap.MADV_RANDOM)
+    except (AttributeError, ValueError, OSError):
+        pass
 
 
 class _Source:

@@ -41,6 +41,12 @@ def merge_sorted_topk(a_d, a_vals, b_d, b_vals, k: int):
     return sd[..., :k], tuple(v[..., :k] for v in svals)
 
 
+def merge_topk(a_key, b_key, a_vals, b_vals, k: int):
+    """``merge_sorted_topk`` in the JAX package's ``merge_topk`` argument
+    order: keys first, then the value tuples.  Ties keep the ``a`` side."""
+    return merge_sorted_topk(a_key, a_vals, b_key, b_vals, k)
+
+
 def compact_by_mask(ids: torch.Tensor, dists: torch.Tensor, keep: torch.Tensor, k: int,
                     with_pos: bool = False):
     """Left-compact kept entries into fixed-width [B, k] buffers.

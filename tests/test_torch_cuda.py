@@ -1,7 +1,8 @@
 """The CUDA kernels on the card (K1, K2, K3, K4, K5) against their plain
 PyTorch versions, the searches and builds that launch them, and the int8
 elements on the card (exact integer dots, K1 on int8-provenance tables,
-the cache-fed int8 build, the element file).
+the cache-fed int8 build, the element file), reorder on the card, and the
+online builder's threads on one card.
 
 Needs an NVIDIA GPU and nvcc; every test skips elsewhere.  This file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -498,3 +499,88 @@ def test_int8_element_file_round_trip_on_card(cuda, tmp_path):
     assert loaded.vectors.is_cuda and torch.equal(loaded.vectors, card_el.vectors)
     assert torch.equal(loaded.inv_norms, card_el.inv_norms)
     assert torch.equal(io.load_elements(card_path, device="cpu").vectors, cpu_el.vectors)
+
+
+@pytest.mark.parametrize("kind", ["angular", "angular_int"])
+def test_reorder_on_card_matches_cpu(cuda, kind):
+    """Granne.reorder on the card: trails as on the CPU (>= 99% of elements;
+    a near-tie of an ef=1 step may go either way), the order their banded
+    sort gives, and with one order the same layers and elements to the bit.
+    A cached index loses its cache; a fresh one serves through K1."""
+    from granne_tpu_torch.index import reorder
+
+    vecs = np.random.default_rng(8).standard_normal((4000, 48)).astype(np.float32)
+    b = g.GranneBuilder(kind, num_neighbors=12, max_search=32, device="cpu")
+    b.append(vecs)
+    b.build()
+    cpu = b.get_index()
+    card_el = (g.AngularVectors.from_normalized(cpu.elements.vectors.numpy(), device=cuda) if kind == "angular"
+               else g.AngularIntVectors.from_quantized(cpu.elements.vectors.numpy(), device=cuda))
+    card = Granne(layers=g.LayerStack.from_numpy(cpu.layers.as_numpy(), device=cuda), elements=card_el)
+    cpu_trails = reorder._entrypoint_trails(cpu.layers, cpu.elements)
+    card_trails = reorder._entrypoint_trails(card.layers, card.elements)
+    assert card_trails.shape == cpu_trails.shape and card_trails.shape[1] >= 1
+    assert np.mean(np.all(card_trails == cpu_trails, axis=1)) >= 0.99
+    cpu_new, cpu_order = cpu.reorder()
+    card_new, card_order = card.with_neighbor_cache("flat").reorder()
+    assert card_new.nbr_vecs is None and card_new.layers.layers[0].is_cuda
+    assert np.array_equal(card_order, reorder.banded_order(card.layers.counts, card_trails))
+    if np.array_equal(card_trails, cpu_trails):
+        assert np.array_equal(card_order, cpu_order)
+    card_given, _ = card.reorder(cpu_order)
+    assert all(np.array_equal(a, c) for a, c in zip(card_given.layers.as_numpy(), cpu_new.layers.as_numpy()))
+    assert torch.equal(card_given.elements.vectors.cpu(), cpu_new.elements.vectors)
+    served = card_new.elements.as_bf16() if kind == "angular" else card_new.elements
+    serve = Granne(layers=card_new.layers, elements=served).with_neighbor_cache("flat")
+    before = gather_score_flat.launches
+    ids, _ = serve.search_batch(vecs[:512], max_search=32, num_neighbors=1)
+    assert gather_score_flat.launches > before
+    assert float(np.mean(card_order[ids[:, 0].cpu().numpy()] == np.arange(512))) >= 0.98
+
+
+@pytest.mark.parametrize("cls", [g.AngularVectors, g.AngularIntVectors], ids=["angular", "angular_int"])
+def test_rw_builder_on_card_keeps_inserts_visible(cuda, cls):
+    """RwGranneBuilder on the card, two threads inserting and one searching:
+    each thread finds its rows (self top-1 >= 0.98) as soon as each
+    insert_batch returns, flushes included, and nothing is lost."""
+    import threading
+
+    vecs = np.random.default_rng(9).standard_normal((3024, 32)).astype(np.float32)
+    rw = g.RwGranneBuilder(cls.from_raw(vecs[:2000], device=cuda),
+                           g.BuildConfig(num_neighbors=12, max_search=40, wave_size=256))
+    errors, hits, searches, done = [], [], [0], threading.Event()
+
+    def inserter(lo):
+        try:
+            for a in range(lo, lo + 512, 128):
+                rw.insert_batch(vecs[a : a + 128])
+                _, d = rw.search_batch(vecs[a : a + 128], max_search=32, num_neighbors=1)
+                hits.append(float((d[:, 0] < 1e-4).float().mean()))
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    def searcher():
+        try:
+            while not done.is_set():
+                ids, _ = rw.search_batch(vecs[:256], max_search=32, num_neighbors=5)
+                assert tuple(ids.shape) == (256, 5) and ids.is_cuda
+                searches[0] += 1
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    workers = [threading.Thread(target=inserter, args=(lo,)) for lo in (2000, 2512)]
+    reader = threading.Thread(target=searcher)
+    reader.start()
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join()
+    done.set()
+    reader.join()
+    if errors:
+        raise errors[0]
+    assert len(hits) == 8 and min(hits) >= 0.98 and searches[0] > 0
+    rw.flush()
+    assert rw.indexed_elements == 3024
+    _, d = rw.search_batch(vecs, max_search=32, num_neighbors=1)  # the threads' order decides the ids
+    assert float((d[:, 0] < 1e-4).float().mean()) >= 0.98

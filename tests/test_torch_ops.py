@@ -109,6 +109,11 @@ def test_sort_and_merge_match_jax(rng):
                 assert sorted(row_t[sel]) == sorted(row_j[sel])
             tied = row_t[sel]
             assert list(tied < 100) == sorted(tied < 100, reverse=True)
+    # merge_topk (the read-write builder's tail merge, JAX's argument order):
+    # one stable sort of the same concatenation, so equal to the last id
+    d, (ids,) = topk.merge_topk(_t(a), _t(b), (_t(a_ids),), (_t(b_ids),), 9)
+    jd, (jids,) = jtopk.merge_topk(jnp.asarray(a), jnp.asarray(b), (jnp.asarray(a_ids),), (jnp.asarray(b_ids),), 9)
+    assert np.array_equal(d.numpy(), np.asarray(jd)) and np.array_equal(ids.numpy(), np.asarray(jids))
 
 
 def test_compact_by_mask_matches_jax(rng):
