@@ -106,8 +106,42 @@ In the order it runs:
     elements, the schedule's layer counts, self-recall@1 >= 0.98 over all
     of them; ``save`` while searches run, reload, one ``HostGranne`` serve
     of the files.  A failed thread fails the run.
+13. Bag-of-embeddings elements: 50,000 words (50 for each of bench.py's
+    1,000 centres, its generator, each word scaled to a norm in [0.5, 2])
+    and 200,000 bags of 2-8 distinct words of one centre, with 4,096
+    held-out bags as queries; ground truth the exact f32 top-10 over the
+    summed unit vectors, a returned id counting if its exact distance is
+    within 1e-6 of the true 10th (equal bags are equal vectors).
+    ``SumEmbeddings.from_parts`` on the card -> ``build_layers`` (step 5's
+    config) -> ``save_index`` / ``save_elements`` (csr24, bytes logged) ->
+    ``load_granne`` (terms and table equal) -> uncached, flat-cache (K1) and
+    tiled-cache (K2) sweeps, the cached routes also with their final beam
+    reranked by the exact f32 sums.  The uncached route must reach 0.90 at
+    some ef <= 120 (0.95 logged); K1 and K2 must end within 0.02 of their
+    bf16 ceiling (an exact top-10 under bf16 rows and query lanes) at ef
+    120, and with the rerank stay within 0.02 of the uncached route at every
+    ef.  ``reorder_by_keys(reorder_keys(...))`` served through K1 within
+    0.005 of the original K1 sweep at every ef; a flat cache-fed build at
+    50,000 (self-recall@1 logged); ``compute_embeddings_and_save_to_disk``
+    -> the ``i1`` file served on the card through K1 (logged) and K1 with
+    the rerank against the codes, and by ``HostGranne`` (one thread, 500
+    queries, ef 120), the last two within 0.02 of the codes' ceiling;
+    ``WordEmbeddingsGranne`` with words ``w0`` .. ``w49999``: 256 elements'
+    own bags as text, each vector within 1e-6 of the numpy f64 normalized
+    sum, top-1 an equal bag for >= 0.95.  K1 and K2 must have launched
+    (``embeddings_path_launches``).
+14. Host-tiered IVF: ``TieredIvf.load`` of step 9's bf16 file (blocks
+    memory-mapped on the host, centroids on the card), 4,096 queries in
+    batches of 1,024 at nprobe 4, 16 and 64: ids overlap the
+    device-resident ``search_batch`` >= 0.999 and ``search_batches`` equals
+    ``search_batches_sequential``; the walls of both and of the resident
+    search, the blocks fetched a batch and the pinned H2D rate are logged.
+    Then step 9's int8 chunked build with ``device_resident=False`` ->
+    ``TieredIvf.from_ivf`` at nprobe 16 must equal the device copy of the
+    same index, ids and distances.  K4 must have launched
+    (``tiered_path_launches``).
 
-Numbers of steps 10-12 are logged beside ``nvidia-smi``'s card name and
+Numbers of steps 10-14 are logged beside ``nvidia-smi``'s card name and
 power limit, host figures also beside the host's CPU model and threads.
 
 Every kernel and its plain version are timed on the same inputs in turns
@@ -187,6 +221,14 @@ HOST_QUERIES = 500  # bench.py's single-core baseline queries (bench.py:574-591)
 # on an H100 80GB HBM3 (700 W) with the search thread running beside it
 RW_BASE, RW_PER_THREAD, RW_CALL = 20_000, 5_120, 512
 RW_VISIBLE = 0.98  # the visibility bar: inserted rows found right after insert_batch returns
+# step 13, bag-of-embeddings elements: 50 words a centre of bench.py's 1,000, bags of 2-8 words of one centre
+EMB_WORDS_PER_CENTRE, EMB_MIN_TERMS, EMB_MAX_TERMS = 50, 2, 8
+EMB_BAR = 0.90  # the uncached route's bar at some ef <= 120 (0.95 is logged)
+EMB_TIE = 1e-6  # a returned id counts if its exact distance is within this of the true 10th
+EMB_REORDER_SLACK = 0.005  # the reordered K1 sweep against the original at every ef
+TEXT_QUERIES, TEXT_SELF_TOP1 = 256, 0.95
+# step 14, host-tiered IVF: step 9's bf16 file, batches of SERVE_B
+TIER_NPROBES = (4, 16, 64)
 
 
 def log(msg: str) -> None:
@@ -635,15 +677,17 @@ def main_path(torch, g, vecs, queries, gt):
     return launches, recalls
 
 
-def serve_sweep(torch, search, gt, n, what, need_bar=True):
+def serve_sweep(torch, search, gt, n, what, need_bar=True, recall_of=None):
     """Recall@K of ``search(lo, ef)`` (see ``search_all``) at every ef in EFS,
     and the QPS at the first ef that reaches TARGET_RECALL.  If none does,
     fail, or with ``need_bar=False`` (the int8 ceiling may sit under the bar)
-    log the QPS at the best ef as "below bar".  Returns {ef: recall}."""
+    log the QPS at the best ef as "below bar".  ``recall_of(ids)`` replaces
+    ``recall_at_k(ids, gt)`` where given.  Returns {ef: recall}."""
+    recall_of = recall_of or (lambda ids: recall_at_k(ids, gt))
     recalls, chosen = {}, None
     for ef in EFS:
         ids, dists = search_all(torch, search, ef)
-        recalls[ef] = recall_at_k(check_result(torch, ids, dists, n, f"the {what} search at ef={ef}"), gt)
+        recalls[ef] = recall_of(check_result(torch, ids, dists, n, f"the {what} search at ef={ef}"))
         log(f"{what} search ef={ef}: recall@{K}={recalls[ef]}")
         if chosen is None and recalls[ef] >= TARGET_RECALL:
             chosen = ef
@@ -919,7 +963,7 @@ def timed_search(torch, fn):
 def ivf_path(torch, g, vecs, queries, gt):
     """The IVF and brute-force engines through the public API.  Returns the
     K3/K4/K5 launch counts of this path."""
-    from granne_tpu_torch.index.ivf import slot_count, slot_groups
+    from granne_tpu_torch.index.ivf import _probe, slot_count, slot_groups
     from granne_tpu_torch.index.ivf_big import build_ivf_i8_chunked
     from granne_tpu_torch.ops import distance
     from granne_tpu_torch.ops.kernels import ivf_score as KS
@@ -964,7 +1008,8 @@ def ivf_path(torch, g, vecs, queries, gt):
     ivf_profile(torch, ivf, queries, PATH_NPROBE)
     q = distance.normalize(torch.as_tensor(queries, device="cuda"))
     S = slot_count(ivf.k, len(queries), PATH_NPROBE, IVF_SLOT_CAP)
-    keys, qg = slot_groups(q, ivf.centroids, ivf.blocks, nprobe=PATH_NPROBE, group_cap=IVF_SLOT_CAP, num_slots=S)[:2]
+    keys, qg = slot_groups(q, _probe(q, ivf.centroids, PATH_NPROBE), ivf.blocks, group_cap=IVF_SLOT_CAP,
+                           num_slots=S)[:2]
     path_inputs = (ivf.blocks, ivf.block_ids, ivf.block_scales, keys, qg)
     del ivf
 
@@ -1252,6 +1297,316 @@ def rw_phase(torch, g, vecs, queries, card):
         fail(f"HostGranne on the saved read-write index: self-recall@1 {host_rec} < {RW_VISIBLE}")
 
 
+def embeddings_data():
+    """Step 13's data: 50 words for each of bench.py's 1,000 Gaussian centres
+    (its generator: sigma 0.35, seed 42), each word scaled to a norm drawn
+    from [0.5, 2]; N bags and N_QUERIES held-out query bags, each of 2-8
+    distinct words of one centre.  Returns (words f32[50,000, D], terms and
+    query terms int32[., 8] with -1 padding)."""
+    rng = np.random.default_rng(42)
+    n_centres = 1000
+    centers = rng.standard_normal((n_centres, D)).astype(np.float32)
+    centre_of = np.repeat(np.arange(n_centres), EMB_WORDS_PER_CENTRE)
+    words = (centers[centre_of] + 0.35 * rng.standard_normal((len(centre_of), D))).astype(np.float32)
+    words *= (rng.uniform(0.5, 2.0, len(words)) / np.linalg.norm(words, axis=1)).astype(np.float32)[:, None]
+
+    def bags(count):
+        centre = rng.integers(0, n_centres, count)
+        size = rng.integers(EMB_MIN_TERMS, EMB_MAX_TERMS + 1, count)
+        pick = np.argsort(rng.random((count, EMB_WORDS_PER_CENTRE)), axis=1)[:, :EMB_MAX_TERMS]
+        terms = centre[:, None] * EMB_WORDS_PER_CENTRE + pick
+        return np.where(np.arange(EMB_MAX_TERMS)[None, :] < size[:, None], terms, -1).astype(np.int32)
+
+    return words, bags(N), bags(N_QUERIES)
+
+
+def unit_rows(torch, container, chunk=65536):
+    """Every element of a container as f32 unit rows on the card."""
+    return torch.cat([container.get(torch.arange(lo, min(len(container), lo + chunk), device="cuda"))
+                      for lo in range(0, len(container), chunk)])
+
+
+def tie_aware(torch, rows, qn):
+    """A recall@K function for unit queries over unit rows: a returned id
+    counts if its exact f32 distance is within EMB_TIE of the query's true
+    K-th (equal bags are equal vectors)."""
+    kth = torch.cat([1.0 - (qn[lo : lo + SERVE_B] @ rows.T).topk(K, dim=1).values[:, -1]
+                     for lo in range(0, len(qn), SERVE_B)])
+
+    def recall_of(ids):
+        t = torch.as_tensor(ids, device="cuda").long()
+        ok = t >= 0
+        dist = 1.0 - torch.einsum("bkd,bd->bk", rows[t.clamp_min(0)], qn[: len(t)])
+        hit = ok & (dist <= kth[: len(t), None] + EMB_TIE)
+        return float(hit.float().sum(1).clamp_max(K).mean()) / K
+
+    return recall_of
+
+
+def embeddings_path(torch, g, card):
+    """Step 13: SumEmbeddings at N elements on the card: build, files,
+    uncached / K1 / K2 serving, reorder_by_keys, a flat cache-fed build,
+    precomputed int8 elements (card and HostGranne), WordEmbeddingsGranne.
+    Returns K1's and K2's launches on this path."""
+    from granne_tpu_torch.api import WordEmbeddingsGranne
+    from granne_tpu_torch.elements.embeddings_etl import WordDict
+    from granne_tpu_torch.index import io
+    from granne_tpu_torch.index.granne import Granne
+    from granne_tpu_torch.ops import distance, frontier
+    from granne_tpu_torch.ops.kernels.nbr_score import gather_score, gather_score_flat
+
+    reset_launch_counts()  # count this path's launches only
+    words, terms, q_terms = embeddings_data()
+    se = g.SumEmbeddings.from_parts(words, terms, device="cuda")
+    qs = g.SumEmbeddings.from_parts(words, q_terms, device="cuda")
+    queries = qs._sums(qs.terms).cpu().numpy()  # raw (unnormalized) query sums; search_batch normalizes
+    rows = unit_rows(torch, se)
+    qn = distance.normalize(torch.as_tensor(queries, device="cuda"))
+    recall_of = tie_aware(torch, rows, qn)
+    log(f"embeddings data: {len(words)} words x {D}, {N} bags and {N_QUERIES} query bags of "
+        f"{EMB_MIN_TERMS}-{EMB_MAX_TERMS} words (T={se.terms.shape[1]}); table {se.embeddings.numel() * 4} bytes, "
+        f"terms {se.terms.numel() * 4} bytes on the card [{card}]")
+
+    cfg = g.BuildConfig(num_neighbors=M, max_search=BUILD_EF, wave_size=WAVE, expand=EXPAND, show_progress=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    layers = g.build_layers(se, cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    log(f"embeddings build: SumEmbeddings n={N} d={D} T={se.terms.shape[1]} M={M} ef={BUILD_EF} wave={WAVE} "
+        f"expand={EXPAND} seconds={build_s} vectors_per_s={N / build_s} layer_counts={list(layers.counts)} [{card}]")
+    if layers.counts[-1] != N:
+        fail(f"the embeddings build's bottom layer holds {layers.counts[-1]} of {N}")
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    ipath, epath = os.path.join(out_dir, "index_emb.gtz"), os.path.join(out_dir, "elements_emb.gt")
+    io.save_index(layers, ipath, compressed=True)
+    io.save_elements(se, epath)
+    loaded = g.load_granne(ipath, epath, device="cuda")
+    if not (torch.equal(loaded.elements.terms, se.terms) and torch.equal(loaded.elements.embeddings, se.embeddings)):
+        fail("the loaded SumEmbeddings elements differ from the built ones")
+    log(f"embeddings save/load: index {os.path.getsize(ipath)} bytes (compressed), elements "
+        f"{os.path.getsize(epath)} bytes (csr24, {io.read_elements_metadata(epath)['offsets_format']} offsets); "
+        f"terms and table equal [{card}]")
+
+    base = Granne(layers=loaded.layers, elements=loaded.elements)
+    flat, tiled = base.with_neighbor_cache("flat"), base.with_neighbor_cache("tiled")
+
+    def reranked(index):  # the final beam re-scored by the exact f32 sums
+        return lambda lo, ef: frontier.search_layers(
+            index.layers.layers, index.elements, index.elements.prepare_queries(queries[lo : lo + SERVE_B]), ef=ef,
+            num_neighbors=K, nbr_vecs=index.nbr_vecs, rerank=True)
+
+    sweep = {}
+    for what, search in (("uncached", batched(base, queries)), ("flat cache (K1)", batched(flat, queries)),
+                         ("tiled cache (K2)", batched(tiled, queries)),
+                         ("flat cache (K1) + rerank", reranked(flat)), ("tiled cache (K2) + rerank", reranked(tiled))):
+        sweep[what] = serve_sweep(torch, search, None, N, f"embeddings {what}", need_bar=False, recall_of=recall_of)
+    uncached = sweep["uncached"]
+    bar_ef = next((ef for ef in EFS if uncached[ef] >= EMB_BAR), None)
+    top_ef = next((ef for ef in EFS if uncached[ef] >= TARGET_RECALL), None)
+    bf16_rows = rows.to(torch.bfloat16).to(torch.float32)
+    b_ids = torch.cat([(qn[lo : lo + SERVE_B].to(torch.bfloat16).to(torch.float32) @ bf16_rows.T).topk(K, dim=1).indices
+                       for lo in range(0, N_QUERIES, SERVE_B)])
+    bf16_ceiling = recall_of(b_ids)
+    del bf16_rows
+    log(f"embeddings uncached: reaches {EMB_BAR} at ef={bar_ef}, {TARGET_RECALL} at ef={top_ef}; bf16 ceiling "
+        f"(an exact top-{K} under bf16 rows and bf16 query lanes, the cached routes' scoring) {bf16_ceiling} [{card}]")
+    if bar_ef is None:
+        fail(f"embeddings uncached recall@{K} stayed below {EMB_BAR} for every ef in {EFS}")
+    for what in ("flat cache (K1)", "tiled cache (K2)"):
+        if sweep[what][EFS[-1]] < bf16_ceiling - RECALL_SLACK:
+            fail(f"embeddings {what} recall {sweep[what][EFS[-1]]} at ef={EFS[-1]} is more than {RECALL_SLACK} "
+                 f"below its bf16 ceiling {bf16_ceiling}")
+        for ef in EFS:
+            if abs(sweep[what + " + rerank"][ef] - uncached[ef]) > RECALL_SLACK:
+                fail(f"embeddings {what} + rerank recall {sweep[what + ' + rerank'][ef]} at ef={ef} is more than "
+                     f"{RECALL_SLACK} from the uncached {uncached[ef]}")
+    del tiled
+
+    t = time.perf_counter()
+    reordered, order = base.reorder_by_keys(g.reorder_keys(loaded.elements))
+    torch.cuda.synchronize()
+    reorder_s = time.perf_counter() - t
+    order_t = torch.as_tensor(order, device="cuda")
+    if not torch.equal(reordered.elements.terms, se.terms[order_t]):
+        fail("the reordered SumEmbeddings terms are not the original rows in the new order")
+    serve = reordered.with_neighbor_cache("flat")
+
+    def search_back(lo, ef):  # ids in the original numbering
+        ids, d = serve.search_batch(queries[lo : lo + SERVE_B], max_search=ef, num_neighbors=K)
+        return torch.where(ids >= 0, order_t[ids.clamp_min(0).long()].to(torch.int32), ids), d
+
+    r_re = serve_sweep(torch, search_back, None, N, "embeddings reordered by keys + flat cache (K1)", need_bar=False,
+                       recall_of=recall_of)
+    log(f"embeddings reorder_by_keys(reorder_keys): seconds={reorder_s}; reordered vs original recall@{K} by ef: "
+        + ", ".join(f"ef={ef} {r_re[ef]} vs {sweep['flat cache (K1)'][ef]}" for ef in EFS) + f" [{card}]")
+    for ef in EFS:
+        if abs(r_re[ef] - sweep["flat cache (K1)"][ef]) > EMB_REORDER_SLACK:
+            fail(f"the reordered embeddings sweep {r_re[ef]} at ef={ef} is more than {EMB_REORDER_SLACK} from "
+                 f"the original's {sweep['flat cache (K1)'][ef]}")
+    del serve, reordered
+
+    sub = g.SumEmbeddings.from_parts(se.embeddings, se.terms[:FLAT_BUILD_N], device="cuda")
+    before = gather_score_flat.launches
+    t = time.perf_counter()
+    sub_layers = g.build_layers(sub, g.BuildConfig(num_neighbors=M, max_search=BUILD_EF, wave_size=WAVE,
+                                                   expand=EXPAND, neighbor_cache=True, neighbor_cache_layout="flat"))
+    torch.cuda.synchronize()
+    sub_s = time.perf_counter() - t
+    own = rows[:SELF_RECALL_ROWS]
+    ids, _ = Granne(layers=sub_layers, elements=sub).search_batch(own, max_search=EFS[0], num_neighbors=1)
+    self_rec = float(((rows[ids[:, 0].long()] * own).sum(1) >= 1.0 - EMB_TIE).float().mean())
+    log(f"embeddings flat cache-fed build n={FLAT_BUILD_N}: seconds={sub_s}, K1 launches "
+        f"{gather_score_flat.launches - before}; self-recall@1 (an equal vector) {self_rec} over "
+        f"{SELF_RECALL_ROWS} rows (uncached, ef={EFS[0]}) [{card}]")
+    del sub, sub_layers
+
+    npz, i1 = os.path.join(out_dir, "elements_emb.npz"), os.path.join(out_dir, "elements_emb_i1.gt")
+    np.savez(npz, terms=terms)
+    t = time.perf_counter()
+    g.compute_embeddings_and_save_to_disk(npz, words, i1, device="cuda")
+    log(f"compute_embeddings_and_save_to_disk: {N} elements -> {os.path.getsize(i1)} bytes (i1) "
+        f"seconds={time.perf_counter() - t} [{card}]")
+    el8 = io.load_elements(i1, device="cuda")
+    codes_rows = el8.cache_rows_exact(torch.arange(N, device="cuda"))
+    c_ids = torch.cat([(qn[lo : lo + SERVE_B] @ codes_rows.T).topk(K, dim=1).indices
+                       for lo in range(0, N_QUERIES, SERVE_B)])
+    ceiling = recall_of(c_ids)
+    served8 = Granne(layers=loaded.layers, elements=el8).with_neighbor_cache("flat")
+    r8 = serve_sweep(torch, batched(served8, queries), None, N, "embeddings int8 (precomputed i1) + flat cache (K1)",
+                     need_bar=False, recall_of=recall_of)
+    r8r = serve_sweep(torch, reranked(served8), None, N, "embeddings int8 (precomputed i1) + flat cache (K1) + rerank",
+                      need_bar=False, recall_of=recall_of)
+    del served8
+    host = g.HostGranne(ipath, i1)
+    t = time.perf_counter()
+    h_ids, _ = host.search_batch(queries[:HOST_QUERIES], max_search=EFS[-1], num_neighbors=K, num_threads=1)
+    h_qps = HOST_QUERIES / (time.perf_counter() - t)
+    recall_head = tie_aware(torch, rows, qn[:HOST_QUERIES])
+    h_rec, h_ceiling = recall_head(h_ids), recall_head(c_ids[:HOST_QUERIES])
+    log(f"embeddings int8: codes' ceiling recall@{K}={ceiling}; K1 route at ef={EFS[-1]} {r8[EFS[-1]]}, "
+        f"reranked against the codes {r8r[EFS[-1]]}; "
+        f"HostGranne (i1, compressed, mmap) ef={EFS[-1]} recall@{K}={h_rec} qps={h_qps} against ceiling "
+        f"{h_ceiling} over {HOST_QUERIES} queries {host_tag(card, 1)}")
+    if r8r[EFS[-1]] < ceiling - I8_CEILING_SLACK or h_rec < h_ceiling - I8_CEILING_SLACK:
+        fail(f"an embeddings int8 route ends more than {I8_CEILING_SLACK} below its codes' ceiling")
+    del el8, codes_rows
+
+    wd = WordDict([f"w{i}" for i in range(len(words))])
+    weg = WordEmbeddingsGranne(base, words, wd)
+    picks = np.random.default_rng(7).choice(N, TEXT_QUERIES, replace=False)
+    worst, found = 0.0, 0
+    for i in picks:
+        bag = [int(x) for x in terms[i] if x >= 0]
+        v = weg.get_internal_vector(" ".join(f"w{x}" for x in bag))
+        want = words[bag].astype(np.float64).sum(0)
+        worst = max(worst, float(np.abs(v - want / np.linalg.norm(want)).max()))
+        hit = weg.search(" ".join(f"w{x}" for x in bag), EFS[0], 1)
+        found += bool(hit) and sorted(loaded.get_internal_element(hit[0][0])) == sorted(bag)
+    log(f"WordEmbeddingsGranne: {TEXT_QUERIES} text queries (elements' own bags): vectors within {worst} of the "
+        f"numpy f64 normalized sums; top-1 an equal bag {found / TEXT_QUERIES} (uncached, ef={EFS[0]}) [{card}]")
+    if worst > 1e-6 or found / TEXT_QUERIES < TEXT_SELF_TOP1:
+        fail(f"WordEmbeddingsGranne: text vectors off by {worst} or self top-1 {found / TEXT_QUERIES} "
+             f"< {TEXT_SELF_TOP1}")
+
+    launches = {"gather_score_flat": gather_score_flat.launches, "gather_score": gather_score.launches}
+    log(f"K1/K2 launches in the embeddings path: {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"the embeddings path never launched {name}")
+    return launches
+
+
+def tiered_path(torch, g, vecs, queries, gt, card):
+    """Step 14: TieredIvf over step 9's saved bf16 file (blocks memory-mapped
+    on the host), against the device-resident search at nprobe 4, 16, 64;
+    pipelined and sequential walls; bytes fetched a batch and the pinned
+    H2D rate; then step 9's int8 chunked build kept on the host.  Returns
+    K4's launches in the tiered searches."""
+    from granne_tpu_torch.index.ivf import _probe
+    from granne_tpu_torch.index.ivf_big import build_ivf_i8_chunked
+    from granne_tpu_torch.ops import distance
+    from granne_tpu_torch.ops.kernels import ivf_score as KS
+
+    path = os.path.join(REPO, "build", "chip_smoke", "index.ivf")
+    t = time.perf_counter()
+    tiered = g.TieredIvf.load(path, device="cuda")
+    log(f"tiered load: {path} ({os.path.getsize(path)} bytes), blocks {type(tiered.host_blocks).__name__} "
+        f"{tiered.host_blocks.shape} {tiered.block_dtype} on the host, seconds={time.perf_counter() - t}")
+    resident = g.IvfIndex.load(path, device="cuda")
+    k, L, d = resident.blocks.shape
+    batches = [queries[lo : lo + SERVE_B] for lo in range(0, N_QUERIES, SERVE_B)]
+    launches = 0
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def tiered_ids(run, nprobe):
+        nonlocal launches
+        before = KS.ivf_score_slots_grouped.launches
+        out = [i for i, _ in run(batches, K, nprobe=nprobe)]
+        launches += KS.ivf_score_slots_grouped.launches - before
+        return np.concatenate(out)
+
+    qn = distance.normalize(torch.as_tensor(queries, device="cuda"))
+    pinned = torch.empty((k, L, d), dtype=torch.int16, pin_memory=True)
+    for nprobe in TIER_NPROBES:
+        (r_ids, r_d), r_s = timed(lambda: resident.search_batch(queries, K, nprobe=nprobe))
+        r_ids = check_result(torch, r_ids, r_d, N, f"the resident IVF search at nprobe={nprobe}")
+        p_ids, p_s = timed(lambda: tiered_ids(tiered.search_batches, nprobe))
+        s_ids, s_s = timed(lambda: tiered_ids(tiered.search_batches_sequential, nprobe))
+        agree, same = overlap(p_ids, r_ids), np.array_equal(p_ids, s_ids)
+        uniq = [len(torch.unique(_probe(qn[lo : lo + SERVE_B], resident.centroids, nprobe)))
+                for lo in range(0, N_QUERIES, SERVE_B)]
+        nbytes = float(np.mean(uniq)) * L * d * 2
+        u = max(uniq)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(10):
+            pinned[:u].to("cuda", non_blocking=True)
+        ev[1].record()
+        torch.cuda.synchronize()
+        rate = 10 * u * L * d * 2 / (ev[0].elapsed_time(ev[1]) / 1e3)
+        log(f"tiered nprobe={nprobe}: recall@{K}={recall_at_k(p_ids, gt)} overlap_with_resident={agree} "
+            f"pipelined==sequential {same}; wall pipelined {p_s} s, sequential {s_s} s (ratio {p_s / s_s}), "
+            f"resident {r_s} s (tiered/resident {p_s / r_s}); blocks fetched a batch {float(np.mean(uniq))} of {k} "
+            f"= {nbytes} bytes (bf16 rows), pinned H2D {rate / 1e9} GB/s at {u} blocks [{card}]")
+        if agree < F32_OVERLAP or not same:
+            fail(f"tiered nprobe={nprobe}: overlap {agree} with the resident search (< {F32_OVERLAP}) "
+                 f"or pipelined != sequential")
+    del pinned, resident, tiered
+
+    codes = distance.quantize_i8(distance.normalize(torch.as_tensor(vecs, device="cuda"))).cpu().numpy()
+    host8 = build_ivf_i8_chunked(codes, n_clusters=IVF_CLUSTERS, cluster_cap=IVF_CAP, kmeans_iters=IVF_ITERS,
+                                 chunk=I8_CHUNK, device_resident=False, device="cuda", log=log)
+    if host8.blocks.device.type != "cpu":
+        fail("build_ivf_i8_chunked(device_resident=False) left its blocks on the card")
+    dev8 = g.IvfIndex(centroids=host8.centroids.cuda(), blocks=host8.blocks.cuda(), block_ids=host8.block_ids.cuda(),
+                      block_scales=host8.block_scales.cuda(), n_total=host8.n_total)
+    w_ids, w_d = dev8.search_batch(queries, K, nprobe=I8_NPROBE)
+    t8 = g.TieredIvf.from_ivf(host8, device="cuda")
+    before = KS.ivf_score_slots_grouped.launches
+    got = list(t8.search_batches(batches, K, nprobe=I8_NPROBE))
+    launches += KS.ivf_score_slots_grouped.launches - before
+    g_ids, g_d = np.concatenate([i for i, _ in got]), np.concatenate([x for _, x in got])
+    equal = np.array_equal(g_ids, w_ids.cpu().numpy()) and np.array_equal(g_d, w_d.cpu().numpy())
+    log(f"tiered int8 (build_ivf_i8_chunked device_resident=False, {host8.k} blocks on the host): nprobe={I8_NPROBE} "
+        f"recall@{K}={recall_at_k(g_ids, gt)}; ids and distances equal to the device copy of the same index: {equal} "
+        f"[{card}]")
+    if not equal:
+        fail("the tiered int8 search differs from the device-resident int8 index")
+    log(f"ivf_score_slots_grouped launches in the tiered path: {launches}")
+    if launches <= 0:
+        fail("the tiered path never launched ivf_score_slots_grouped")
+    return launches
+
+
 def ivf_profile(torch, ivf, queries, nprobe):
     """One warm ``search_batch`` of every query per route (K4, fused K5)
     under ``torch.profiler``: host wall (a second, unprofiled call),
@@ -1377,6 +1732,10 @@ def main() -> None:
     no_jax("host serving phase")
     rw_phase(torch, g, vecs, queries, smi)
     no_jax("read-write builder phase")
+    emb_launches = embeddings_path(torch, g, smi)
+    no_jax("embeddings path")
+    tiered_launches = tiered_path(torch, g, vecs, queries, gt, smi)
+    no_jax("tiered IVF path")
 
     def record(name, source, replaces, n_launches, r):
         return {
@@ -1395,12 +1754,17 @@ def main() -> None:
     kernels = [
         {**record("gather_score_flat", nbr_src, "granne_tpu/ops/pallas/nbr_score.py:342", launches, rec),
          "int8_path_launches": int8_launches, "reorder_path_launches": reorder_launches,
+         "embeddings_path_launches": emb_launches["gather_score_flat"],
          **{key: rec[key] for key in ("int8_unit_lanes_max_abs_err", "int8_code_lanes_max_scaled_err")}},
-        record("gather_score", nbr_src, "granne_tpu/ops/pallas/nbr_score.py:130", k2_launches, k2_rec),
+        {**record("gather_score", nbr_src, "granne_tpu/ops/pallas/nbr_score.py:130", k2_launches, k2_rec),
+         "embeddings_path_launches": emb_launches["gather_score"]},
     ]
     for name, line in (("ivf_score_slots", 59), ("ivf_score_slots_grouped", 136), ("ivf_score_topk", 227)):
-        kernels.append(record(name, "granne_tpu_torch/csrc/ivf_score.cu", f"granne_tpu/ops/pallas/ivf_score.py:{line}",
-                              ivf_launches[name], ivf_recs[name]))
+        kernels.append({
+            **record(name, "granne_tpu_torch/csrc/ivf_score.cu", f"granne_tpu/ops/pallas/ivf_score.py:{line}",
+                     ivf_launches[name], ivf_recs[name]),
+            **({"tiered_path_launches": tiered_launches} if name == "ivf_score_slots_grouped" else {}),
+        })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

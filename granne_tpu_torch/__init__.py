@@ -8,13 +8,27 @@ IVF engine, whose slot scorers are hand-written CUDA kernels
 serving API.  Saved files are also served on the host from memory maps by
 the C++ search (``HostGranne``), an index can be renumbered for locality
 (``Granne.reorder``), and ``RwGranneBuilder`` inserts into a live index.
+Bag-of-embeddings elements (``SumEmbeddings``) build and serve through
+the same kernels, with their ETL and a text-query index
+(``WordEmbeddingsGranne``); ``TieredIvf`` serves an IVF index whose blocks
+stay in host memory and stream to the card a batch at a time.
 The module layout mirrors ``granne_tpu``; the on-disk formats are the same
 files.  This package imports torch and numpy, never jax.
 """
 
-from .api import GranneBuilder, compute_distance, load_granne
+from .api import (
+    Embeddings,
+    GranneBuilder,
+    WordEmbeddingsGranne,
+    compute_distance,
+    compute_embeddings_and_save_to_disk,
+    load_granne,
+    parse_elements_and_save_to_disk,
+)
 from .elements.angular import AngularVectors
 from .elements.angular_int import AngularIntVectors
+from .elements.embeddings import SumEmbeddings, reorder_keys
+from .elements.embeddings_etl import WordDict
 from .index.builder import MAX_ELEMENTS, BuildConfig, build_layers
 from .index.granne import Granne
 from .index.graph import LayerStack
@@ -23,12 +37,14 @@ from .index.reorder import compute_order, order_by_keys, reorder_by_keys, reorde
 from .index.rw import RwGranneBuilder
 from .models.brute import BruteForceIndex
 from .native.serve import HostGranne
+from .parallel.tiering import TieredIvf
 
 __all__ = [
     "AngularIntVectors",
     "AngularVectors",
     "BruteForceIndex",
     "BuildConfig",
+    "Embeddings",
     "Granne",
     "GranneBuilder",
     "HostGranne",
@@ -36,11 +52,18 @@ __all__ = [
     "LayerStack",
     "MAX_ELEMENTS",
     "RwGranneBuilder",
+    "SumEmbeddings",
+    "TieredIvf",
+    "WordDict",
+    "WordEmbeddingsGranne",
     "build_layers",
     "compute_distance",
+    "compute_embeddings_and_save_to_disk",
     "compute_order",
     "load_granne",
     "order_by_keys",
+    "parse_elements_and_save_to_disk",
     "reorder_by_keys",
     "reorder_index",
+    "reorder_keys",
 ]

@@ -1,8 +1,9 @@
 """Carry an index across from the JAX package.
 
-``granne_tpu``'s ``LayerStack.as_numpy()``, its ``AngularVectors.vectors``
-and its ``AngularIntVectors.vectors`` (int8 codes, with the container's
-``rounding``), as numpy arrays, become the port's objects on ``device``; the tests use
+``granne_tpu``'s ``LayerStack.as_numpy()``, its ``AngularVectors.vectors``,
+its ``AngularIntVectors.vectors`` (int8 codes, with the container's
+``rounding``) and its ``SumEmbeddings`` (``embeddings`` and ``terms``), as
+numpy arrays, become the port's objects on ``device``; the tests use
 this to run the port on JAX-built graphs.  The IVF and brute-force engines'
 arrays come across the same way (bf16 as numpy's extension ``bfloat16``
 dtype or as raw uint16 bits).  Files written by either package load in the other
@@ -19,6 +20,7 @@ import torch
 
 from .elements.angular import AngularVectors
 from .elements.angular_int import AngularIntVectors
+from .elements.embeddings import SumEmbeddings
 from .index.granne import Granne
 from .index.graph import LayerStack
 from .index.ivf import IvfIndex
@@ -37,8 +39,17 @@ def int8_elements_from_numpy(codes, rounding: str = "trunc", device="cuda") -> A
     return dataclasses.replace(el, rounding=rounding)
 
 
+def sum_embeddings_from_numpy(embeddings, terms, device="cuda") -> SumEmbeddings:
+    """An embedding table f32[V, d] and padded terms int32[n, T] (-1 padding)
+    -> SumEmbeddings."""
+    return SumEmbeddings.from_parts(np.asarray(embeddings, np.float32), np.asarray(terms, np.int32), device=device)
+
+
 def granne_from_numpy(layer_arrays, vectors, device="cuda") -> Granne:
-    """Adjacency arrays + unit-norm f32 vectors [n, d] (or int8 codes) -> Granne."""
+    """Adjacency arrays + unit-norm f32 vectors [n, d], int8 codes, or a
+    port container (e.g. from ``sum_embeddings_from_numpy``) -> Granne."""
+    if isinstance(vectors, SumEmbeddings):
+        return Granne(layers=layers_from_numpy(layer_arrays, device=device), elements=vectors)
     vectors = np.asarray(vectors)
     if vectors.dtype == np.int8:
         elements = int8_elements_from_numpy(vectors, device=device)

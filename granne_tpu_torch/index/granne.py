@@ -71,18 +71,26 @@ class Granne:
     def get_neighbors(self, index: int, layer: int) -> list[int]:
         return self.layers.get_neighbors(layer, index)
 
-    def get_element(self, index: int) -> np.ndarray:
-        """The container's own row: f32 unit vector, int8 codes for int8
-        elements (a bf16 copy's row comes back as f32: numpy has no bf16)."""
+    def _check_element_index(self, index: int) -> None:
         n = len(self.elements)
         if not 0 <= index < n:
             raise IndexError(f"element index {index} out of range [0, {n})")
-        row = self.elements.vectors[index]
+
+    def get_element(self, index: int) -> np.ndarray:
+        """The element's vector as ``elements.get`` gives it: the f32 unit
+        vector, int8 codes for int8 elements, the summed unit vector for
+        SumEmbeddings (a bf16 copy's row comes back as f32: numpy has no bf16)."""
+        self._check_element_index(index)
+        row = self.elements.get(torch.tensor([index], device=self.elements.device))[0]
         return (row.to(torch.float32) if row.dtype == torch.bfloat16 else row).cpu().numpy()
 
-    def get_internal_element(self, index: int) -> np.ndarray:
-        """The element as the index stores it (py/src/lib.rs:255-258): for the
-        dense containers ported so far, ``get_element``."""
+    def get_internal_element(self, index: int):
+        """The element as the index stores it (py/src/lib.rs:255-258): the
+        term-id list of a SumEmbeddings element, else ``get_element``."""
+        self._check_element_index(index)
+        get_terms = getattr(self.elements, "get_terms", None)
+        if get_terms is not None:
+            return get_terms(index)
         return self.get_element(index)
 
     # -- search ----------------------------------------------------------------

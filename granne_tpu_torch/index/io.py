@@ -6,10 +6,11 @@ compressed by the shared C++ codec; elements are a separate file with the
 same metadata block and a dense matrix: ``<f4`` for ``"angular"``, the
 int8 codes (``i1``) for ``"angular_int"``.  An int8 file does not record the
 container's ``rounding``, as in the JAX package: a loaded container extends
-with truncated codes.  Writes go to ``path.tmp`` and are moved into place
-with ``os.replace``.
-
-``"embeddings"`` elements are not ported yet; they raise.
+with truncated codes.  ``"embeddings"`` (``SumEmbeddings``) files hold the
+term lists as CSR (the chunk-compressed offset table, or raw ``<u8``
+offsets when a row holds more than 65,535 terms, then the 3-byte term ids)
+followed by the ``<f4`` embedding table.  Writes go to ``path.tmp`` and are
+moved into place with ``os.replace``.
 """
 
 from __future__ import annotations
@@ -145,35 +146,72 @@ def load_index(source, device="cuda") -> LayerStack:
 # ---------------------------------------------------------------------------
 
 
-def save_elements(elements, path: str) -> None:
-    """Write an ``AngularVectors`` container (a bf16 copy is written as f32)
-    or an ``AngularIntVectors`` one (its int8 codes), streaming the matrix
-    to the host in bounded row chunks."""
-    from ..elements.angular import AngularVectors
-    from ..elements.angular_int import AngularIntVectors
+def _embeddings_payload(elements):
+    """A SumEmbeddings container's CSR blob (offsets then packed term ids)
+    and its metadata, in the JAX package's key order."""
+    from ..elements import packed
+    from ..native import codec
 
-    if isinstance(elements, AngularVectors):
-        kind, dtype, cast = "angular", "<f4", torch.float32
-    elif isinstance(elements, AngularIntVectors):
-        kind, dtype, cast = "angular_int", "i1", torch.int8
-    else:
-        raise TypeError(
-            f"unsupported element container: {type(elements)!r} (granne_tpu_torch "
-            "saves angular and angular_int elements; ROADMAP.md, Queue 1 item 10)"
-        )
-    data = elements.vectors
-    n, d = data.shape
-    meta = {
+    terms = elements.terms.cpu().numpy().astype("<i4")
+    offsets, ids = packed.terms_to_csr(terms)
+    off_blob, off_fmt = codec.encode_offsets_py(offsets), "chunked"
+    if not off_blob:  # a row longer than 65,535 terms: raw u64 offsets
+        off_blob, off_fmt = np.ascontiguousarray(offsets, "<u8").tobytes(), "raw64"
+    V, d_emb = elements.embeddings.shape
+    meta = {  # count and dim stand where the JAX package first inserts them
         "granne_tpu_version": LIBRARY_VERSION,
         "version": SERIALIZATION_VERSION,
-        "type": kind,
-        "count": int(n),
-        "dim": int(d),
+        "type": "embeddings",
+        "count": int(terms.shape[0]),
+        "dim": int(terms.shape[1]),
+        "vocab": int(V),
+        "emb_dim": int(d_emb),
+        "terms_format": "csr24",
+        "offsets_format": off_fmt,
+        "offsets_bytes": len(off_blob),
+        "num_terms": int(len(ids)),
+        "term_width": int(terms.shape[1]),
     }
+    return off_blob + packed.pack_u24(ids), meta
+
+
+def save_elements(elements, path: str) -> None:
+    """Write an ``AngularVectors`` container (a bf16 copy is written as f32),
+    an ``AngularIntVectors`` one (its int8 codes) or a ``SumEmbeddings`` one
+    (CSR terms, then the f32 table), streaming the matrix to the host in
+    bounded row chunks."""
+    from ..elements.angular import AngularVectors
+    from ..elements.angular_int import AngularIntVectors
+    from ..elements.embeddings import SumEmbeddings
+
+    head = b""
+    if isinstance(elements, SumEmbeddings):
+        head, meta = _embeddings_payload(elements)
+        dtype, cast, data = "<f4", torch.float32, elements.embeddings
+    else:
+        if isinstance(elements, AngularVectors):
+            kind, dtype, cast = "angular", "<f4", torch.float32
+        elif isinstance(elements, AngularIntVectors):
+            kind, dtype, cast = "angular_int", "i1", torch.int8
+        else:
+            raise TypeError(
+                f"unsupported element container: {type(elements)!r} (granne_tpu_torch saves "
+                "angular, angular_int and SumEmbeddings elements)"
+            )
+        data = elements.vectors
+        meta = {
+            "granne_tpu_version": LIBRARY_VERSION,
+            "version": SERIALIZATION_VERSION,
+            "type": kind,
+            "count": int(data.shape[0]),
+            "dim": int(data.shape[1]),
+        }
+    n, d = data.shape
     step = max(1, _WRITE_CHUNK_BYTES // max(1, np.dtype(dtype).itemsize * int(d)))
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         _write_metadata(f, ELEMENTS_MAGIC, meta)
+        f.write(head)
         for lo in range(0, int(n), step):
             chunk = data[lo : lo + step].to(cast).cpu().numpy()
             f.write(np.ascontiguousarray(chunk, dtype=dtype).tobytes())
@@ -184,6 +222,25 @@ def read_elements_metadata(path) -> dict:
     return _read_metadata(_Source(path).head(METADATA_LEN), ELEMENTS_MAGIC)
 
 
+def _load_embeddings(src, meta, device):
+    from ..elements import packed
+    from ..elements.embeddings import SumEmbeddings
+    from ..native import codec
+
+    if meta.get("terms_format") != "csr24":
+        raise ValueError(f"unknown embeddings terms format {meta.get('terms_format')!r}")
+    n, off_bytes, num_terms = meta["count"], meta["offsets_bytes"], meta["num_terms"]
+    off_blob = src.bytes_at(METADATA_LEN, off_bytes)
+    if meta["offsets_format"] == "chunked":
+        offsets = codec.decode_offsets_py(off_blob, n + 1)
+    else:
+        offsets = np.frombuffer(off_blob, "<u8")
+    ids = packed.unpack_u24(src.region(np.uint8, METADATA_LEN + off_bytes, (num_terms * 3,)), num_terms)
+    terms = packed.csr_to_terms(offsets, ids, meta["term_width"])
+    emb = src.region("<f4", METADATA_LEN + off_bytes + num_terms * 3, (meta["vocab"], meta["emb_dim"]))
+    return SumEmbeddings.from_parts(np.array(emb), terms, device=device)
+
+
 def load_elements(source, device="cuda"):
     """Load an element file (path or bytes-like buffer) onto ``device``: the
     matrix is read through a memory map and uploaded whole."""
@@ -192,15 +249,14 @@ def load_elements(source, device="cuda"):
 
     src = _Source(source)
     meta = _read_metadata(src.head(METADATA_LEN), ELEMENTS_MAGIC)
+    if meta["type"] == "embeddings":
+        return _load_embeddings(src, meta, device)
     kinds = {
         "angular": ("<f4", AngularVectors.from_normalized),
         "angular_int": ("i1", AngularIntVectors.from_quantized),
     }
     if meta["type"] not in kinds:
-        raise ValueError(
-            f"element type {meta['type']!r} is not ported to granne_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 item 10)"
-        )
+        raise ValueError(f"unknown element type {meta['type']!r}")
     dtype, make = kinds[meta["type"]]
     raw = src.region(dtype, METADATA_LEN, (meta["count"], meta["dim"]))
     return make(np.array(raw), device=device)

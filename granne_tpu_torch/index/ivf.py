@@ -332,15 +332,16 @@ def slot_count(k: int, B: int, nprobe: int, group_cap: int) -> int:
     return min(B * nprobe, k + (B * nprobe) // group_cap + 8)
 
 
-def slot_groups(q, centroids, blocks, *, nprobe, group_cap, num_slots):
-    """The grouped search's slots for unit queries ``q``: (keys int32[S]
-    clamped into [0, k), qg bf16[S, group_cap, d] each slot's query group,
-    and ``group_pairs``'s slot_pairs, item_slot, item_pos, sorted_pairs).
-    Equal keys come in runs; an unused slot is clamped to block 0 and holds
-    query 0."""
-    P = q.shape[0] * nprobe
-    pair_keys = _probe(q, centroids, nprobe).reshape(-1).to(torch.int32)
-    pair_idx = torch.arange(P, dtype=torch.int32, device=q.device)
+def slot_groups(q, probes, blocks, *, group_cap, num_slots):
+    """The grouped search's slots for unit queries ``q`` [B, d] and their
+    probed blocks ``probes`` [B, nprobe] (indices into ``blocks``): (keys
+    int32[S] clamped into [0, k), qg bf16[S, group_cap, d] each slot's query
+    group, and ``group_pairs``'s slot_pairs, item_slot, item_pos,
+    sorted_pairs).  Equal keys come in runs; an unused slot is clamped to
+    block 0 and holds query 0."""
+    nprobe = probes.shape[1]
+    pair_keys = probes.reshape(-1).to(torch.int32)
+    pair_idx = torch.arange(pair_keys.shape[0], dtype=torch.int32, device=q.device)
     slot_keys, slot_pairs, item_slot, item_pos, sorted_pairs, _ = group_pairs(
         pair_keys, pair_idx, cap=group_cap, num_slots=num_slots
     )
@@ -359,20 +360,33 @@ def _ivf_search_grouped(
     centroids, blocks, block_ids, block_scales, q, *, nprobe, k_out, group_cap, num_slots,
     use_pallas_topk=False, slot_group=8,
 ):
-    """Cluster-centric scoring: each probed block is read once and scored
-    against every query probing it.  Hot blocks probed by more than
-    ``group_cap`` queries spill into further slots (no dropped work).
+    """The grouped search of ``q`` over the ``nprobe`` blocks nearest each
+    query (``search_probed`` after the coarse probe).  ``use_pallas_topk``
+    keeps the JAX package's name for the fused route (K5)."""
+    return search_probed(
+        _probe(q, centroids, nprobe), blocks, block_ids, block_scales, q, k_out=k_out, group_cap=group_cap,
+        num_slots=num_slots, use_pallas_topk=use_pallas_topk, slot_group=slot_group,
+    )
 
-    ``use_pallas_topk`` keeps the JAX package's name for the fused route
-    (K5).
+
+def search_probed(
+    probes, blocks, block_ids, block_scales, q, *, k_out, group_cap, num_slots, use_pallas_topk=False, slot_group=8,
+):
+    """Cluster-centric scoring of given probes [B, nprobe] (indices into
+    ``blocks``): each probed block is read once and scored against every
+    query probing it.  Hot blocks probed by more than ``group_cap`` queries
+    spill into further slots (no dropped work).  The final top-k runs over
+    each query's [nprobe * L] candidates in probe order, ties to the lower
+    column.
     """
+    nprobe = probes.shape[1]
     B = q.shape[0]
     L = blocks.shape[1]
     S = num_slots
     P = B * nprobe
     # per-slot block + query group; an unused slot is scored and masked below
     safe_keys, qg, slot_pairs, item_slot, item_pos, sorted_pairs = slot_groups(
-        q, centroids, blocks, nprobe=nprobe, group_cap=group_cap, num_slots=S
+        q, probes, blocks, group_cap=group_cap, num_slots=S
     )
     lin = torch.where(item_slot >= 0, item_slot * group_cap + item_pos, 0).long()
     dropped = (item_slot < 0)[:, None]

@@ -584,3 +584,130 @@ def test_rw_builder_on_card_keeps_inserts_visible(cuda, cls):
     assert rw.indexed_elements == 3024
     _, d = rw.search_batch(vecs, max_search=32, num_neighbors=1)  # the threads' order decides the ids
     assert float((d[:, 0] < 1e-4).float().mean()) >= 0.98
+
+
+# -- bag-of-embeddings elements and host-tiered IVF ---------------------------
+
+
+def _sum_embeddings(dev, V, d, n, T, seed=0):
+    """A SumEmbeddings container: V words of width d with norms in [0.5, 2],
+    n bags of 1..T distinct words, one empty bag."""
+    rng = np.random.default_rng(seed)
+    emb = rng.standard_normal((V, d)).astype(np.float32)
+    emb *= (rng.uniform(0.5, 2.0, V) / np.linalg.norm(emb, axis=1))[:, None]
+    lists = [list(rng.choice(V, size=rng.integers(1, T + 1), replace=False)) for _ in range(n)]
+    lists[3] = []
+    return g.SumEmbeddings.from_parts(emb, lists, device=dev)
+
+
+@pytest.mark.parametrize("V,d,n,T", [(300, 24, 2000, 6), (5000, 100, 20_000, 8)])
+def test_sum_embeddings_get_on_card_matches_cpu(cuda, V, d, n, T):
+    """get, self_dist and the distances of SumEmbeddings on the card within
+    1e-6 of the same container on the CPU (the T columns summed in order on
+    both); the empty bag is the zero vector at self-distance 1."""
+    card = _sum_embeddings(cuda, V, d, n, T)
+    cpu = g.SumEmbeddings(card.embeddings.cpu(), card.terms.cpu())
+    ids = torch.randint(0, n, (64, 33), generator=torch.Generator().manual_seed(1))
+    ids[0, 0] = 3
+    got, want = card.get(ids.to(cuda)).cpu(), cpu.get(ids)
+    assert float((got - want).abs().max()) <= 1e-6
+    assert float(card.self_dist(torch.tensor([3], device=cuda))[0]) == 1.0
+    q = torch.randn((64, d), generator=torch.Generator().manual_seed(2))
+    d_card = card.dist_ids_to_queries(ids.to(cuda), card.prepare_queries(q)).cpu()
+    assert float((d_card - cpu.dist_ids_to_queries(ids, cpu.prepare_queries(q))).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("V,d,n,T", [(300, 24, 2000, 6), (5000, 100, 20_000, 8)])
+def test_precomputed_codes_on_card_equal_cpu(cuda, tmp_path, V, d, n, T):
+    """precompute_quantized_vectors gives the same int8 codes and norms on the
+    card and the CPU, bit for bit, and compute_embeddings_and_save_to_disk
+    the same i1 file."""
+    from granne_tpu_torch.elements.embeddings_etl import precompute_quantized_vectors
+
+    card = _sum_embeddings(cuda, V, d, n, T)
+    cpu = g.SumEmbeddings(card.embeddings.cpu(), card.terms.cpu())
+    a, b = precompute_quantized_vectors(card), precompute_quantized_vectors(cpu, chunk=1000)
+    assert a.vectors.device.type == "cuda"
+    assert torch.equal(a.vectors.cpu(), b.vectors) and torch.equal(a.inv_norms.cpu(), b.inv_norms)
+    np.savez(tmp_path / "el", terms=cpu.terms.numpy())
+    for dev in (cuda, "cpu"):
+        g.compute_embeddings_and_save_to_disk(str(tmp_path / "el.npz"), cpu.embeddings.numpy(),
+                                              str(tmp_path / f"{torch.device(dev).type}.i1"), device=dev)
+    assert (tmp_path / "cuda.i1").read_bytes() == (tmp_path / "cpu.i1").read_bytes()
+
+
+def test_k1_k2_on_sum_embeddings_cache_match_plain(cuda):
+    """K1 (flat) and K2 (tiled) on neighbor caches of SumEmbeddings rows at
+    the serve width (d 100, M 20) against their plain versions (within
+    1e-4; ids equal); each launched once."""
+    el = _sum_embeddings(cuda, 5000, 100, 20_000, 8)
+    M, B = 20, 512
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    adj = torch.randint(0, len(el), (len(el), M), generator=gen, device=cuda, dtype=torch.int32)
+    adj[::2, M // 2 :] = -1
+    sel = torch.randint(-3, len(el), (B, 4), generator=gen, device=cuda, dtype=torch.int32)
+    q = el.query_lanes(el.prepare_queries(torch.randn((B, 100), generator=gen, device=cuda)))
+    flat = make_neighbor_cache(adj, el, layout="flat")
+    before = gather_score_flat.launches
+    dots, nbrs = gather_score_flat(flat, sel, q, M=M, d=100)
+    torch.cuda.synchronize()
+    assert gather_score_flat.launches == before + 1
+    ref_d, ref_n = gather_score_flat_reference(flat, sel, q, M=M, d=100)
+    assert torch.equal(nbrs, ref_n) and float((dots - ref_d).abs().max()) <= 1e-4
+    tiled = make_neighbor_cache(adj, el, layout="tiled")
+    before = gather_score.launches
+    dots = gather_score(tiled, sel, q, M=M)
+    torch.cuda.synchronize()
+    assert gather_score.launches == before + 1
+    assert float((dots - gather_score_reference(tiled, sel, q, M=M)).abs().max()) <= 1e-4
+
+
+def test_sum_embeddings_cache_fed_build_on_card_matches_cpu(cuda):
+    """A flat cache-fed build over SumEmbeddings on the card launches K1 and
+    gives the CPU build's graph (per-layer edge Jaccard >= 0.99); serving
+    it through the tiled cache launches K2 and finds each element's own
+    vector (self top-1 by vector >= 0.95)."""
+    el = _sum_embeddings(cuda, 300, 24, 2000, 6)
+    cfg = g.BuildConfig(num_neighbors=12, max_search=32, neighbor_cache=True, neighbor_cache_layout="flat")
+    before = gather_score_flat.launches
+    card = g.build_layers(el, cfg)
+    torch.cuda.synchronize()
+    assert gather_score_flat.launches > before
+    cpu = g.build_layers(g.SumEmbeddings(el.embeddings.cpu(), el.terms.cpu()), cfg)
+    assert card.counts == cpu.counts
+    for a, b in zip(card.as_numpy(), cpu.as_numpy()):
+        assert _jaccard(a, b) >= 0.99
+    own = el.get(torch.arange(256, device=cuda))
+    before = gather_score.launches
+    ids, _ = Granne(layers=card, elements=el).with_neighbor_cache("tiled").search_batch(own, 32, 1)
+    assert gather_score.launches > before
+    assert float(((el.get(ids[:, 0]) * own).sum(1) > 1 - 1e-5).float().mean()) >= 0.95
+
+
+def test_tiered_ivf_on_card_matches_resident(cuda, tmp_path):
+    """TieredIvf on the card (blocks in host memory, fetched blocks on the
+    card, scored by K4) gives the device-resident IvfIndex's ids and
+    distances bit for bit, pipelined and sequential, from from_ivf and from
+    a memory-mapped load, with bf16 and int8 blocks."""
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((40, 48)).astype(np.float32)
+    x = (centers[rng.integers(0, 40, 6000)] + 0.35 * rng.standard_normal((6000, 48))).astype(np.float32)
+    batches = [x[lo : lo + 500] for lo in range(0, 2000, 500)]
+    for dtype in ("bfloat16", "int8"):
+        index = g.IvfIndex.build(x, n_clusters=40, kmeans_iters=5, cluster_cap=64, dtype=dtype, device=cuda)
+        path = str(tmp_path / f"{dtype}.ivf")
+        index.save(path)
+        want = [tuple(t.cpu().numpy() for t in index.search_batch(b, 10, nprobe=8)) for b in batches]
+        for t in (g.TieredIvf.from_ivf(index), g.TieredIvf.load(path)):
+            assert isinstance(t.host_blocks, np.ndarray) and t.centroids.device.type == "cuda"
+            stream, slots = t._streams()
+            (q, blocks, ids, scales, inv), done = t._prepare(x[:8], 2, slots[0], stream)
+            done.synchronize()
+            assert blocks.device.type == "cuda" and blocks.dtype == index.blocks.dtype
+            assert blocks.shape[0] == len(np.unique(inv.cpu().numpy())) < index.k
+            before = K.ivf_score_slots_grouped.launches
+            for run in (t.search_batches, t.search_batches_sequential):
+                got = list(run(batches, 10, nprobe=8))
+                for (gi, gd), (wi, wd) in zip(got, want):
+                    assert np.array_equal(gi, wi) and np.array_equal(gd, wd)
+            assert K.ivf_score_slots_grouped.launches == before + 2 * len(batches)
