@@ -140,8 +140,30 @@ In the order it runs:
     ``TieredIvf.from_ivf`` at nprobe 16 must equal the device copy of the
     same index, ids and distances.  K4 must have launched
     (``tiered_path_launches``).
+15. Multi-device serving (``granne_tpu_torch.parallel``), ranks spawned by
+    ``run_ranks`` after the parent has built the kernels.  (a) A world of
+    one through NCCL on cuda:0: ``ShardedIvf.load`` of step 9's bf16 file
+    at nprobe 4, 16 and 64 must equal the resident ``search_batch``, ids and
+    distances; ``TieredShardedIvf.load`` must give ``TieredIvf``'s ids;
+    ``ShardedGranne.load`` of a one-shard directory over step 5's pair must
+    overlap the uncached f32 search of that pair >= 0.999 at every ef (its
+    recall, and the resident IVF recalls of the bf16 file and of step 9's
+    int8 chunked index, saved by step 9, are (b)'s bars).  (b) A world of
+    four through gloo, every rank on cuda:0 (four ranks sharing one card:
+    no scale-out figure): ``ShardedIvf.load`` of the bf16 file (250 blocks
+    a rank) and of the int8 file (1,002 blocks: two padding blocks) must
+    reach the one-device recall at each nprobe (the int8 index at nprobe
+    16), and the fused route (K5) overlap the K4 route >= 0.999;
+    ``TieredShardedIvf.load`` must overlap ``ShardedIvf`` >= 0.999;
+    ``ShardedGranne.build`` of the 200,000 vectors in 4 shards of 50,000
+    (step 5's config) must reach (a)'s single-device recall at every ef,
+    and save -> load in the four ranks give the same ids.  Every rank must
+    return the same answers.  Logged: build seconds, QPS (batch 1,024) a
+    world and route, the merge's time and, for gloo, the bytes through the
+    host a batch, the step's wall.  K4 and K5 must have launched in the
+    ranks (``sharded_path_launches``).
 
-Numbers of steps 10-14 are logged beside ``nvidia-smi``'s card name and
+Numbers of steps 10-15 are logged beside ``nvidia-smi``'s card name and
 power limit, host figures also beside the host's CPU model and threads.
 
 Every kernel and its plain version are timed on the same inputs in turns
@@ -229,6 +251,12 @@ EMB_REORDER_SLACK = 0.005  # the reordered K1 sweep against the original at ever
 TEXT_QUERIES, TEXT_SELF_TOP1 = 256, 0.95
 # step 14, host-tiered IVF: step 9's bf16 file, batches of SERVE_B
 TIER_NPROBES = (4, 16, 64)
+# step 15, multi-device serving: step 9's files, the nprobes of (a)'s equality and (b)'s recall bars,
+# the nprobe of the logged QPS, and the time a world of ranks may take before the run fails
+OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
+IVF_FILE, I8_IVF_FILE = os.path.join(OUT_DIR, "index.ivf"), os.path.join(OUT_DIR, "index_i8.ivf")
+SHARD_WORLD, SHARD_NPROBES, SHARD_QPS_NPROBE, SHARD_TIMEOUT = 4, (4, 16, 64), 16, 600
+RECALL_EPS = 1e-9  # "sharded recall >= one-device recall" up to the summation order of recall_at_k
 
 
 def log(msg: str) -> None:
@@ -975,8 +1003,8 @@ def ivf_path(torch, g, vecs, queries, gt):
     torch.cuda.synchronize()
     log(f"ivf build: n={N} clusters={IVF_CLUSTERS} blocks={built.k} L={built.cluster_cap} "
         f"seconds={time.perf_counter() - t}")
-    os.makedirs(os.path.join(REPO, "build", "chip_smoke"), exist_ok=True)
-    path = os.path.join(REPO, "build", "chip_smoke", "index.ivf")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = IVF_FILE
     built.save(path)
     ivf = g.IvfIndex.load(path, device="cuda")
     for name in ("centroids", "block_ids", "block_scales"):
@@ -1030,6 +1058,7 @@ def ivf_path(torch, g, vecs, queries, gt):
                                 chunk=I8_CHUNK, device="cuda", log=log)
     torch.cuda.synchronize()
     log(f"ivf int8 build (chunked, {-(-N // I8_CHUNK)} chunks): blocks={ivf8.k} seconds={time.perf_counter() - t}")
+    ivf8.save(I8_IVF_FILE)  # served again by step 15's ranks
     for route, kw in (("k4", {}), ("k5_fused", {"fused_topk": True})):
         (i_ids, i_d), qps = timed_search(torch, lambda: ivf8.search_batch(queries, K, nprobe=I8_NPROBE, **kw))
         r_i8 = recall_at_k(check_result(torch, i_ids, i_d, N, f"the int8 IVF {route} route"), gt)
@@ -1529,7 +1558,7 @@ def tiered_path(torch, g, vecs, queries, gt, card):
     from granne_tpu_torch.ops import distance
     from granne_tpu_torch.ops.kernels import ivf_score as KS
 
-    path = os.path.join(REPO, "build", "chip_smoke", "index.ivf")
+    path = IVF_FILE
     t = time.perf_counter()
     tiered = g.TieredIvf.load(path, device="cuda")
     log(f"tiered load: {path} ({os.path.getsize(path)} bytes), blocks {type(tiered.host_blocks).__name__} "
@@ -1604,6 +1633,228 @@ def tiered_path(torch, g, vecs, queries, gt, card):
     log(f"ivf_score_slots_grouped launches in the tiered path: {launches}")
     if launches <= 0:
         fail("the tiered path never launched ivf_score_slots_grouped")
+    return launches
+
+
+# -- step 15: multi-device serving --------------------------------------------
+
+
+def ivf_search(index, queries, **kw):
+    """``search(lo, nprobe)`` of an IVF engine on ``queries[lo : lo + SERVE_B]``."""
+    return lambda lo, nprobe: index.search_batch(queries[lo : lo + SERVE_B], K, nprobe=nprobe, **kw)
+
+
+def tiered_ids(index, queries, nprobe):
+    """A tiered engine's ids of every query, batches of SERVE_B through its pipeline."""
+    batches = [queries[lo : lo + SERVE_B] for lo in range(0, N_QUERIES, SERVE_B)]
+    return np.concatenate([i for i, _ in index.search_batches(batches, K, nprobe=nprobe)])
+
+
+def rank_measures(torch, group, queries, sharded, sharded8, tiered_s, sg):
+    """A rank's QPS of each sharded route (a warm repeat over every query),
+    the merge's milliseconds for one batch of candidates, and the launches
+    of K3-K5 in this rank."""
+    from granne_tpu_torch import all_gather_topk
+    from granne_tpu_torch.ops.kernels import ivf_score as KS
+
+    p = SHARD_QPS_NPROBE
+    routes = {
+        f"ShardedIvf k4 nprobe={p}": lambda: search_all(torch, ivf_search(sharded, queries), p),
+        f"ShardedIvf k5_fused nprobe={p}": lambda: search_all(torch, ivf_search(sharded, queries, fused_topk=True), p),
+        f"ShardedIvf int8 k4 nprobe={I8_NPROBE}": lambda: search_all(torch, ivf_search(sharded8, queries), I8_NPROBE),
+        f"TieredShardedIvf nprobe={p}": lambda: tiered_ids(tiered_s, queries, p),
+        f"ShardedGranne ef={EFS[0]}": lambda: search_all(torch, batched(sg, queries), EFS[0]),
+    }
+    qps = {name: timed_search(torch, fn)[1] for name, fn in routes.items()}
+    ids = torch.arange(SERVE_B * K, dtype=torch.int32, device=group.device).reshape(SERVE_B, K)
+    d = torch.rand((SERVE_B, K), device=group.device).sort(dim=1).values
+    all_gather_topk(ids, d, K, group)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        all_gather_topk(ids, d, K, group)
+    torch.cuda.synchronize()
+    merge_ms = (time.perf_counter() - t) / 10 * 1e3
+    launches = {f.__name__: f.launches for f in (KS.ivf_score_slots, KS.ivf_score_slots_grouped, KS.ivf_score_topk)}
+    return {"qps": qps, "merge_ms": merge_ms, "launches": launches}
+
+
+def world_of_one(group, hnsw_dir, pair, queries):
+    """Step 15(a), a rank of a world of one (NCCL): the sharded engines
+    against the one-device searches of the same files.  The one-device
+    searches run first; the launch counts are zeroed after them, so the
+    rank's counts are the sharded engines' alone."""
+    import torch
+
+    import granne_tpu_torch as g
+    from granne_tpu_torch.ops import distance
+
+    distance.full_f32()
+    out = {"group": group.describe(), "equal": {}, "ids": {}}
+    resident, tiered = g.IvfIndex.load(IVF_FILE, device=group.device), g.TieredIvf.load(IVF_FILE, device=group.device)
+    want = {nprobe: search_all(torch, ivf_search(resident, queries), nprobe) for nprobe in SHARD_NPROBES}
+    want_tiered = {nprobe: tiered_ids(tiered, queries, nprobe) for nprobe in SHARD_NPROBES}
+    resident8 = g.IvfIndex.load(I8_IVF_FILE, device=group.device)
+    out["ids"][("ivf_i8", I8_NPROBE)] = search_all(torch, ivf_search(resident8, queries), I8_NPROBE)[0].cpu().numpy()
+    single = g.load_granne(*pair, device=group.device)
+    for ef in EFS:
+        out["ids"][("single", ef)] = search_all(torch, batched(single, queries), ef)[0].cpu().numpy()
+    del resident, tiered, resident8, single
+
+    reset_launch_counts()
+    sharded, sharded8 = g.ShardedIvf.load(IVF_FILE, group), g.ShardedIvf.load(I8_IVF_FILE, group)
+    for nprobe, (r_ids, r_d) in want.items():
+        s_ids, s_d = search_all(torch, ivf_search(sharded, queries), nprobe)
+        out["equal"][f"ShardedIvf == IvfIndex nprobe={nprobe}"] = torch.equal(s_ids, r_ids) and torch.equal(s_d, r_d)
+        out["ids"][("ivf", nprobe)] = r_ids.cpu().numpy()
+    tiered_s = g.TieredShardedIvf.load(IVF_FILE, group)
+    for nprobe, ids in want_tiered.items():
+        out["equal"][f"TieredShardedIvf == TieredIvf nprobe={nprobe}"] = np.array_equal(
+            tiered_ids(tiered_s, queries, nprobe), ids)
+    sg = g.ShardedGranne.load(hnsw_dir, group)
+    for ef in EFS:
+        out["ids"][("granne", ef)] = search_all(torch, batched(sg, queries), ef)[0].cpu().numpy()
+    out.update(rank_measures(torch, group, queries, sharded, sharded8, tiered_s, sg))
+    return out
+
+
+def world_of_four(group, vecs_file, out_dir, queries):
+    """Step 15(b), a rank of a world of four (gloo, every rank on cuda:0)."""
+    import torch
+
+    import granne_tpu_torch as g
+    from granne_tpu_torch.ops import distance
+
+    distance.full_f32()
+    reset_launch_counts()
+    out = {"group": group.describe(), "ids": {}}
+    sharded = g.ShardedIvf.load(IVF_FILE, group)
+    for nprobe in SHARD_NPROBES:
+        out["ids"][("ivf", nprobe)] = search_all(torch, ivf_search(sharded, queries), nprobe)[0].cpu().numpy()
+        out["ids"][("ivf_k5", nprobe)] = search_all(
+            torch, ivf_search(sharded, queries, fused_topk=True), nprobe)[0].cpu().numpy()
+    sharded8 = g.ShardedIvf.load(I8_IVF_FILE, group)
+    out["padding_blocks"] = int((~sharded8.centroid_valid).sum())
+    out["ids"][("ivf_i8", I8_NPROBE)] = search_all(torch, ivf_search(sharded8, queries), I8_NPROBE)[0].cpu().numpy()
+    tiered_s = g.TieredShardedIvf.load(IVF_FILE, group)
+    for nprobe in SHARD_NPROBES:
+        out["ids"][("tiered", nprobe)] = tiered_ids(tiered_s, queries, nprobe)
+
+    vecs = np.load(vecs_file, mmap_mode="r")
+    cfg = g.BuildConfig(num_neighbors=M, max_search=BUILD_EF, wave_size=WAVE, expand=EXPAND)
+    group.barrier()
+    t = time.perf_counter()
+    sg = g.ShardedGranne.build(g.AngularVectors, vecs, cfg, group)
+    torch.cuda.synchronize()
+    own = time.perf_counter() - t
+    group.barrier()
+    out["build_s"], out["layer_counts"] = (own, time.perf_counter() - t), sg.index.layers.counts
+    for ef in EFS:
+        out["ids"][("granne", ef)] = search_all(torch, batched(sg, queries), ef)[0].cpu().numpy()
+    sg.save(out_dir)
+    loaded = g.ShardedGranne.load(out_dir, group)
+    out["reloaded_equal"] = np.array_equal(search_all(torch, batched(loaded, queries), EFS[0])[0].cpu().numpy(),
+                                           out["ids"][("granne", EFS[0])])
+    out.update(rank_measures(torch, group, queries, sharded, sharded8, tiered_s, sg))
+    return out
+
+
+def sharded_path(torch, g, vecs, queries, gt, card):
+    """Step 15: a world of one through NCCL, then a world of four through
+    gloo on the one card (see the module docstring).  Returns the launches
+    of K4 and K5 in the ranks."""
+    from granne_tpu_torch.index.ivf import read_metadata
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    hnsw_dir = os.path.join(OUT_DIR, "one_shard")
+    os.makedirs(hnsw_dir, exist_ok=True)
+    pair = (os.path.join(OUT_DIR, "index.gtz"), os.path.join(OUT_DIR, "elements.gt"))
+    for name, target in zip(("shard0.index", "shard0.elements"), pair):
+        link = os.path.join(hnsw_dir, name)
+        if os.path.lexists(link):
+            os.remove(link)
+        os.symlink(target, link)
+    with open(os.path.join(hnsw_dir, "manifest.json"), "w") as f:
+        json.dump({"num_shards": 1, "n_total": N, "shard_offsets": [0]}, f)
+    vecs_file = os.path.join(OUT_DIR, "vecs.npy")
+    np.save(vecs_file, vecs)
+
+    t = time.perf_counter()
+    one = g.run_ranks(world_of_one, 1, hnsw_dir, pair, queries, backend="nccl", device="cuda",
+                      timeout=SHARD_TIMEOUT)[0]
+    log(f"sharded world of 1: {one['group']}, wall {time.perf_counter() - t} s (spawn included) [{card}]")
+    for what, equal in one["equal"].items():
+        log(f"sharded world of 1: {what}: {equal}")
+        if not equal:
+            fail(f"world of one: {what} is false")
+    bar = {key: recall_at_k(ids, gt) for key, ids in one["ids"].items()}
+    for ef in EFS:
+        agree = overlap(one["ids"][("granne", ef)], one["ids"][("single", ef)])
+        log(f"sharded world of 1: ShardedGranne (one shard over step 5's pair) ef={ef}: recall@{K}="
+            f"{bar[('granne', ef)]} overlap_with_uncached_f32={agree} (uncached f32 recall {bar[('single', ef)]})")
+        if agree < F32_OVERLAP:
+            fail(f"world of one: ShardedGranne overlaps the single-device search {agree} < {F32_OVERLAP} at ef={ef}")
+    log(f"sharded world of 1 (nccl): qps (batch {SERVE_B}) {one['qps']}; merge {one['merge_ms']} ms a batch; "
+        f"launches {one['launches']} [{card}]")
+
+    t = time.perf_counter()
+    four = g.run_ranks(world_of_four, SHARD_WORLD, vecs_file, os.path.join(OUT_DIR, "sharded_granne"), queries,
+                       backend="gloo", device="cuda", timeout=SHARD_TIMEOUT)
+    log(f"sharded world of {SHARD_WORLD}: {four[0]['group']}, wall {time.perf_counter() - t} s (spawn included); "
+        f"{SHARD_WORLD} ranks share one card: no scale-out figure [{card}]")
+    for r, out in enumerate(four):
+        same = all(np.array_equal(ids, four[0]["ids"][key]) for key, ids in out["ids"].items())
+        if not same or not out["reloaded_equal"]:
+            fail(f"world of {SHARD_WORLD}: rank {r} returned other ids than rank 0 ({same}) "
+                 f"or its reloaded ShardedGranne other ids ({out['reloaded_equal']})")
+    ids = four[0]["ids"]
+    for key, a in [*one["ids"].items(), *ids.items()]:
+        if a.shape != (N_QUERIES, K) or a.min() < -1 or a.max() >= N:
+            fail(f"malformed sharded search result {key}: shape {a.shape}")
+    padding = sum(out["padding_blocks"] for out in four)
+    k8 = read_metadata(I8_IVF_FILE)["k_phys"]
+    checks = []
+    for nprobe in SHARD_NPROBES:
+        r = recall_at_k(ids[("ivf", nprobe)], gt)
+        k5 = overlap(ids[("ivf_k5", nprobe)], ids[("ivf", nprobe)])
+        tier = overlap(ids[("tiered", nprobe)], ids[("ivf", nprobe)])
+        log(f"sharded world of {SHARD_WORLD}: ShardedIvf bf16 nprobe={nprobe} (per rank): recall@{K}={r} "
+            f"(one device {bar[('ivf', nprobe)]}); k5_fused overlap_with_k4={k5}; TieredShardedIvf overlap={tier}")
+        checks += [(r >= bar[("ivf", nprobe)] - RECALL_EPS,
+                    f"ShardedIvf recall {r} < one device {bar[('ivf', nprobe)]} at nprobe {nprobe}"),
+                   (k5 >= ROUTE_AGREEMENT, f"the K5 route overlaps the K4 route {k5} at nprobe {nprobe}"),
+                   (tier >= F32_OVERLAP, f"TieredShardedIvf overlaps ShardedIvf {tier} at nprobe {nprobe}")]
+    r8 = recall_at_k(ids[("ivf_i8", I8_NPROBE)], gt)
+    log(f"sharded world of {SHARD_WORLD}: ShardedIvf int8 (chunked build, {k8} blocks, {padding} padding blocks) "
+        f"nprobe={I8_NPROBE}: recall@{K}={r8} (one device {bar[('ivf_i8', I8_NPROBE)]})")
+    checks += [(r8 >= bar[("ivf_i8", I8_NPROBE)] - RECALL_EPS, f"int8 ShardedIvf recall {r8} < one device"),
+               (padding == (-k8) % SHARD_WORLD, f"{padding} padding blocks for {k8} blocks over {SHARD_WORLD} ranks")]
+    builds = [out["build_s"] for out in four]
+    log(f"sharded world of {SHARD_WORLD}: ShardedGranne.build n={N} in {SHARD_WORLD} shards of {N // SHARD_WORLD} "
+        f"(M={M} ef={BUILD_EF} wave={WAVE} expand={EXPAND}): seconds a rank {[b[0] for b in builds]}, to the last rank "
+        f"{max(b[1] for b in builds)}; layer_counts {[out['layer_counts'] for out in four]} [{card}]")
+    for ef in EFS:
+        r = recall_at_k(ids[("granne", ef)], gt)
+        log(f"sharded world of {SHARD_WORLD}: ShardedGranne ef={ef} expand=1: recall@{K}={r} "
+            f"(one device, uncached f32: {bar[('single', ef)]})")
+        checks.append((r >= bar[("single", ef)] - RECALL_EPS,
+                       f"ShardedGranne recall {r} < one device {bar[('single', ef)]} at ef {ef}"))
+    host_bytes = SERVE_B * K * 8
+    log(f"sharded world of {SHARD_WORLD} (gloo): qps (batch {SERVE_B}) {four[0]['qps']}; merge "
+        f"{[out['merge_ms'] for out in four]} ms a batch by rank; through the host a batch: {host_bytes} B a rank "
+        f"down (ids int32 + dists f32), {SHARD_WORLD * host_bytes} B gathered on each host, {host_bytes} B back; "
+        f"save -> load in {SHARD_WORLD} ranks gave equal ids [{card}]")
+    for ok, msg in checks:
+        if not ok:
+            fail(f"world of {SHARD_WORLD}: {msg}")
+
+    launches = {name: one["launches"][name] + sum(out["launches"][name] for out in four)
+                for name in ("ivf_score_slots_grouped", "ivf_score_topk")}
+    log(f"K4/K5 launches in the sharded path's ranks: {launches}; step 15 wall {time.perf_counter() - t0} s [{card}]")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"the sharded path never launched {name}")
     return launches
 
 
@@ -1736,6 +1987,8 @@ def main() -> None:
     no_jax("embeddings path")
     tiered_launches = tiered_path(torch, g, vecs, queries, gt, smi)
     no_jax("tiered IVF path")
+    sharded_launches = sharded_path(torch, g, vecs, queries, gt, smi)
+    no_jax("sharded path")
 
     def record(name, source, replaces, n_launches, r):
         return {
@@ -1764,6 +2017,7 @@ def main() -> None:
             **record(name, "granne_tpu_torch/csrc/ivf_score.cu", f"granne_tpu/ops/pallas/ivf_score.py:{line}",
                      ivf_launches[name], ivf_recs[name]),
             **({"tiered_path_launches": tiered_launches} if name == "ivf_score_slots_grouped" else {}),
+            **({"sharded_path_launches": sharded_launches[name]} if name in sharded_launches else {}),
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

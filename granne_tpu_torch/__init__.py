@@ -11,7 +11,10 @@ the C++ search (``HostGranne``), an index can be renumbered for locality
 Bag-of-embeddings elements (``SumEmbeddings``) build and serve through
 the same kernels, with their ETL and a text-query index
 (``WordEmbeddingsGranne``); ``TieredIvf`` serves an IVF index whose blocks
-stay in host memory and stream to the card a batch at a time.
+stay in host memory and stream to the card a batch at a time.  Several
+devices serve one index over ``torch.distributed`` (one process a rank):
+``ShardedIvf`` and ``TieredShardedIvf`` split the IVF blocks,
+``ShardedGranne`` the elements, each merging the ranks' top-k.
 The module layout mirrors ``granne_tpu``; the on-disk formats are the same
 files.  This package imports torch and numpy, never jax.
 """
@@ -37,7 +40,10 @@ from .index.reorder import compute_order, order_by_keys, reorder_by_keys, reorde
 from .index.rw import RwGranneBuilder
 from .models.brute import BruteForceIndex
 from .native.serve import HostGranne
-from .parallel.tiering import TieredIvf
+from .parallel.mesh import Group, all_gather_topk, make_group, run_ranks
+from .parallel.sharded import ShardedGranne
+from .parallel.sharded_ivf import ShardedIvf
+from .parallel.tiering import TieredIvf, TieredShardedIvf
 
 __all__ = [
     "AngularIntVectors",
@@ -47,23 +53,30 @@ __all__ = [
     "Embeddings",
     "Granne",
     "GranneBuilder",
+    "Group",
     "HostGranne",
     "IvfIndex",
     "LayerStack",
     "MAX_ELEMENTS",
     "RwGranneBuilder",
+    "ShardedGranne",
+    "ShardedIvf",
     "SumEmbeddings",
     "TieredIvf",
+    "TieredShardedIvf",
     "WordDict",
     "WordEmbeddingsGranne",
+    "all_gather_topk",
     "build_layers",
     "compute_distance",
     "compute_embeddings_and_save_to_disk",
     "compute_order",
     "load_granne",
+    "make_group",
     "order_by_keys",
     "parse_elements_and_save_to_disk",
     "reorder_by_keys",
     "reorder_index",
     "reorder_keys",
+    "run_ranks",
 ]

@@ -49,6 +49,7 @@ import torch
 
 from .elements.angular import AngularVectors
 from .elements.angular_int import AngularIntVectors
+from .elements.embeddings import SumEmbeddings
 from .index import io as gio
 from .index.builder import BuildConfig, build_layers
 from .index.granne import Granne
@@ -59,16 +60,42 @@ DEFAULT_MAX_SEARCH = 200
 DEFAULT_NUM_ELEMENTS = 10
 
 _ELEMENT_TYPES = {"angular": AngularVectors, "angular_int": AngularIntVectors}
+EMBEDDINGS = "embeddings"  # the kind of a SumEmbeddings container (the element files' name)
 
 
 def _element_class(element_type: str):
     if element_type not in _ELEMENT_TYPES:
         raise ValueError(
             f"element type {element_type!r} is not a vector type (types: 'angular', 'angular_int'; "
-            "bag-of-embeddings elements are built with build_layers over SumEmbeddings.from_parts, "
-            "as in the JAX package)"
+            "bag-of-embeddings elements need their table: "
+            "GranneBuilder.from_elements(SumEmbeddings.from_parts(table, term_lists)))"
         )
     return _ELEMENT_TYPES[element_type]
+
+
+def _element_kind(elements) -> str:
+    if isinstance(elements, SumEmbeddings):
+        return EMBEDDINGS
+    for name, c in _ELEMENT_TYPES.items():
+        if isinstance(elements, c):
+            return name
+    raise ValueError(f"no GranneBuilder element type for a {type(elements).__name__} container")
+
+
+def _term_lists(element) -> list[list[int]]:
+    """One term-id list, or a list of them, as lists of ints.  A raw vector
+    (any float) is refused: a bag-of-embeddings element is its terms."""
+    if isinstance(element, (np.ndarray, torch.Tensor)):
+        element = element.tolist()
+    items = list(element)
+    lists = [items] if all(not isinstance(t, (list, tuple, np.ndarray)) for t in items) else [list(t) for t in items]
+    for terms in lists:
+        for t in terms:
+            if not isinstance(t, (int, np.integer)) or isinstance(t, bool):
+                raise ValueError(
+                    f"'embeddings' elements are term-id lists (one list, or a list of lists), not vectors: got {t!r}"
+                )
+    return [[int(t) for t in terms] for terms in lists]
 
 
 def compute_distance(element_type: str, a, b, device="cuda") -> float:
@@ -274,8 +301,15 @@ class GranneBuilder:
         config: Optional[BuildConfig] = None,
         *,
         device="cuda",
+        elements=None,
         **config_kwargs,
     ):
+        """``elements``, an element container to continue from, sets the
+        kind, ``dim`` and ``device`` (see ``from_elements``)."""
+        if elements is not None:
+            element_type, dim, device = _element_kind(elements), elements.dim, elements.device
+        else:
+            _element_class(element_type)
         if config is None:
             config = BuildConfig(**config_kwargs)
         elif config_kwargs:
@@ -283,20 +317,20 @@ class GranneBuilder:
         distance.full_f32()
         self.config = config
         self.device = torch.device(device)
-        self._cls = _element_class(element_type)
+        self.element_type = element_type
         self._dim = dim
-        self._pending: list[np.ndarray] = []
-        self._elements = None
+        self._pending: list = []  # raw vector batches, or term-id lists for "embeddings"
+        self._elements = elements
         self._layers: Optional[LayerStack] = None
 
     # -- construction ------------------------------------------------------
 
     @classmethod
     def from_elements(cls, elements, config: Optional[BuildConfig] = None, **kw) -> "GranneBuilder":
-        kind = next((name for name, c in _ELEMENT_TYPES.items() if isinstance(elements, c)), type(elements).__name__)
-        b = cls(kind, dim=elements.dim, config=config, device=elements.device, **kw)
-        b._elements = elements
-        return b
+        """Continue from an element container: f32 or int8 vectors, or a
+        ``SumEmbeddings`` (kind ``"embeddings"``; its ``append`` takes
+        term-id lists)."""
+        return cls(config=config, elements=elements, **kw)
 
     @classmethod
     def from_index(
@@ -318,7 +352,11 @@ class GranneBuilder:
     # -- element ingestion -------------------------------------------------
 
     def append(self, vector) -> None:
-        """Append one element [d], or a batch [n, d]."""
+        """Append one element [d], or a batch [n, d]; for ``"embeddings"``
+        one term-id list, or a list of them."""
+        if self.element_type == EMBEDDINGS:
+            self._pending.extend(_term_lists(vector))
+            return
         v = np.asarray(vector, np.float32)
         if v.ndim == 1:
             v = v[None, :]
@@ -329,15 +367,19 @@ class GranneBuilder:
         self._pending.append(v)
 
     def _flush(self):
-        if self._pending:
+        if self._pending and self.element_type == EMBEDDINGS:
+            self._elements = self._elements.extend(self._pending)
+            self._pending.clear()
+        elif self._pending:
             batch = np.concatenate(self._pending, axis=0)
             self._pending.clear()
             if self._elements is None:
-                self._elements = self._cls.from_raw(batch, device=self.device)
+                self._elements = _ELEMENT_TYPES[self.element_type].from_raw(batch, device=self.device)
             else:
                 self._elements = self._elements.extend(batch)
         if self._elements is None:  # nothing appended yet: an empty view, not stored
-            return self._cls.from_raw(np.zeros((0, self._dim or 1), np.float32), device=self.device)
+            empty = np.zeros((0, self._dim or 1), np.float32)
+            return _ELEMENT_TYPES[self.element_type].from_raw(empty, device=self.device)
         return self._elements
 
     @property

@@ -4,7 +4,9 @@
 its ``AngularIntVectors.vectors`` (int8 codes, with the container's
 ``rounding``) and its ``SumEmbeddings`` (``embeddings`` and ``terms``), as
 numpy arrays, become the port's objects on ``device``; the tests use
-this to run the port on JAX-built graphs.  The IVF and brute-force engines'
+this to run the port on JAX-built graphs.  A JAX sharded index comes
+across one rank at a time (``sharded_ivf_from_numpy``,
+``sharded_granne_from_numpy``): each rank takes only its own shard.  The IVF and brute-force engines'
 arrays come across the same way (bf16 as numpy's extension ``bfloat16``
 dtype or as raw uint16 bits).  Files written by either package load in the other
 (``index.io``, ``IvfIndex.save``/``load``), so this is the in-memory path
@@ -92,3 +94,27 @@ def brute_from_numpy(vectors, scale, n_total, device="cuda") -> BruteForceIndex:
         scale=_tensor(np.asarray(scale, np.float32), device),
         n_total=int(n_total),
     )
+
+
+def sharded_ivf_from_numpy(centroids, blocks, block_ids, block_scales, n_total, group):
+    """A JAX ``IvfIndex``'s (or ``ShardedIvf``'s unpadded) arrays -> this
+    rank's ``ShardedIvf`` rows on ``group.device``; only the rank's rows
+    go to its device."""
+    from .parallel.sharded_ivf import ShardedIvf
+
+    return ShardedIvf.from_ivf(ivf_from_numpy(centroids, blocks, block_ids, block_scales, n_total, "cpu"), group)
+
+
+def sharded_granne_from_numpy(layer_arrays_of_shard, vectors_of_shard, offset, n_total, group):
+    """One shard of a JAX ``ShardedGranne`` -> this rank's ``ShardedGranne``:
+    the shard's layers trimmed to their counts
+    (``np.asarray(sg.layers[i][s])[:sg.counts[i][s]]``), its elements
+    (``sg.elements.vectors[s]``, padding rows included), its first global
+    id (the contiguous split's, which is checked) and the index's size."""
+    from .parallel.sharded import ShardedGranne, shard_bounds
+
+    offsets = tuple(int(o) for o in shard_bounds(n_total, group.world)[:-1])
+    if offsets[group.rank] != int(offset):
+        raise ValueError(f"rank {group.rank}'s shard starts at {offsets[group.rank]}, not {offset}")
+    index = granne_from_numpy(layer_arrays_of_shard, vectors_of_shard, device=group.device)
+    return ShardedGranne(group, index, offsets, int(n_total))

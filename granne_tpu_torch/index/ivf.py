@@ -92,6 +92,13 @@ class IvfIndex:
     def device(self) -> torch.device:
         return self.blocks.device
 
+    def rows(self, lo: int, hi: int) -> "IvfIndex":
+        """Block rows [lo, hi) as an index of their own (views, no copy)."""
+        return IvfIndex(
+            centroids=self.centroids[lo:hi], blocks=self.blocks[lo:hi], block_ids=self.block_ids[lo:hi],
+            block_scales=self.block_scales[lo:hi], n_total=self.n_total,
+        )
+
     @classmethod
     def build(
         cls,
@@ -264,30 +271,21 @@ class IvfIndex:
         os.replace(tmp, path)
 
     @classmethod
-    def load(cls, path: str, device="cuda") -> "IvfIndex":
-        """Load an index written by either package onto ``device``."""
-        with open(path, "rb") as f:
-            meta = gio._read_metadata(f.read(gio.METADATA_LEN), IVF_MAGIC)
-        k, L, d = meta["k_phys"], meta["cluster_cap"], meta["dim"]
-        src = gio._Source(path)
-        off = gio.METADATA_LEN
+    def load(cls, path: str, device="cuda", rows: tuple[int, int] | None = None) -> "IvfIndex":
+        """Load an index written by either package onto ``device``; with
+        ``rows=(lo, hi)`` only block rows [lo, hi) are read (through the
+        file's memory map), ``n_total`` still the whole index's."""
+        meta, (cent, blocks, bids, *scales) = file_rows(path, rows)
 
-        def take(dtype, shape):
-            nonlocal off
-            arr = np.array(src.region(dtype, off, shape))
-            off += arr.nbytes
-            return torch.as_tensor(arr, device=device)
+        def take(arr):
+            return torch.as_tensor(np.array(arr), device=device)
 
-        cent = take("<f4", (k, d))
-        blocks = take(_FILE_DTYPES[meta["dtype"]], (k, L, d))
+        blocks = take(blocks)
         if meta["dtype"] == "bfloat16":
             blocks = blocks.view(torch.bfloat16)
-        bids = take("<i4", (k, L))
-        if meta["has_scales"]:
-            scales = take("<f4", (k, L))
-        else:
-            scales = torch.ones((k, L), dtype=torch.float32, device=device)
-        return cls(centroids=cent, blocks=blocks, block_ids=bids, block_scales=scales, n_total=meta["n_total"])
+        bids = take(bids)
+        scales = take(scales[0]) if scales else torch.ones(bids.shape, dtype=torch.float32, device=device)
+        return cls(centroids=take(cent), blocks=blocks, block_ids=bids, block_scales=scales, n_total=meta["n_total"])
 
     # -- search ------------------------------------------------------------
 
@@ -326,6 +324,33 @@ class IvfIndex:
         )
 
 
+def read_metadata(path) -> dict:
+    """The metadata block of an ``IvfIndex`` file (``k_phys``, ``cluster_cap``,
+    ``dim``, ``dtype``, ``n_total``, ``has_scales``)."""
+    return gio._read_metadata(gio._Source(path).head(gio.METADATA_LEN), IVF_MAGIC)
+
+
+def file_rows(path, rows: tuple[int, int] | None = None):
+    """An ``IvfIndex`` file's metadata and its centroids, blocks (bf16 as
+    int16 bits), ids and, for int8, scales, as read-only memory maps of
+    block rows [lo, hi) (every row by default): (meta, [arrays])."""
+    src = gio._Source(path)
+    meta = read_metadata(path)
+    k, L, d = meta["k_phys"], meta["cluster_cap"], meta["dim"]
+    lo, hi = (0, k) if rows is None else rows
+    if not 0 <= lo <= hi <= k:
+        raise ValueError(f"block rows [{lo}, {hi}) are not within the file's {k}")
+    parts = [("<f4", (d,)), (_FILE_DTYPES[meta["dtype"]], (L, d)), ("<i4", (L,))]
+    parts += [("<f4", (L,))] if meta["has_scales"] else []
+    off, out = gio.METADATA_LEN, []
+    for dtype, row in parts:
+        row_bytes = np.dtype(dtype).itemsize * int(np.prod(row))
+        shape = (hi - lo, *row)
+        out.append(src.region(dtype, off + lo * row_bytes, shape) if hi > lo else np.empty(shape, dtype))
+        off += k * row_bytes
+    return meta, out
+
+
 def slot_count(k: int, B: int, nprobe: int, group_cap: int) -> int:
     """Slots of a grouped search of ``B`` queries: one a probed block, and
     one more per ``group_cap`` queries that probe it, with room to spare."""
@@ -351,21 +376,27 @@ def slot_groups(q, probes, blocks, *, group_cap, num_slots):
     return safe_keys, qg, slot_pairs, item_slot, item_pos, sorted_pairs
 
 
-def _probe(q, centroids, nprobe):
-    """Coarse scores -> [B, nprobe] probed blocks, ties to the lower block."""
-    return top_k(q @ centroids.to(torch.float32).T, nprobe)[1]
+def _probe(q, centroids, nprobe, centroid_valid=None):
+    """Coarse scores -> [B, nprobe] probed blocks, ties to the lower block.
+    ``centroid_valid`` (bool[k]) keeps padding blocks out: their zero
+    centroids score 0 and would win probes over real blocks scoring below 0."""
+    cs = q @ centroids.to(torch.float32).T
+    if centroid_valid is not None:
+        cs = torch.where(centroid_valid[None, :], cs, -torch.inf)
+    return top_k(cs, nprobe)[1]
 
 
 def _ivf_search_grouped(
     centroids, blocks, block_ids, block_scales, q, *, nprobe, k_out, group_cap, num_slots,
-    use_pallas_topk=False, slot_group=8,
+    use_pallas_topk=False, slot_group=8, centroid_valid=None,
 ):
     """The grouped search of ``q`` over the ``nprobe`` blocks nearest each
-    query (``search_probed`` after the coarse probe).  ``use_pallas_topk``
-    keeps the JAX package's name for the fused route (K5)."""
+    query (``search_probed`` after the coarse probe, padding blocks masked
+    by ``centroid_valid``).  ``use_pallas_topk`` keeps the JAX package's
+    name for the fused route (K5)."""
     return search_probed(
-        _probe(q, centroids, nprobe), blocks, block_ids, block_scales, q, k_out=k_out, group_cap=group_cap,
-        num_slots=num_slots, use_pallas_topk=use_pallas_topk, slot_group=slot_group,
+        _probe(q, centroids, nprobe, centroid_valid), blocks, block_ids, block_scales, q, k_out=k_out,
+        group_cap=group_cap, num_slots=num_slots, use_pallas_topk=use_pallas_topk, slot_group=slot_group,
     )
 
 

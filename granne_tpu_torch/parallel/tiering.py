@@ -1,5 +1,5 @@
-"""Host-memory tiering of IVF blocks (port of the one-device part of
-``granne_tpu/parallel/tiering.py``: ``TieredIvf``).
+"""Host-memory tiering of IVF blocks (port of ``granne_tpu/parallel/tiering.py``:
+``TieredIvf`` on one device, ``TieredShardedIvf`` over a group).
 
 The centroids live on the device; the cluster blocks, their ids and their
 scales stay in host memory (a memory map of the index file after
@@ -31,11 +31,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..index import io as gio
-from ..index.ivf import _DTYPES, _FILE_DTYPES, IVF_MAGIC, IvfIndex, _probe, search_probed, slot_count
+from ..index.ivf import _DTYPES, IvfIndex, _probe, file_rows, read_metadata, search_probed, slot_count
 from ..ops import distance as D
+from .mesh import Group, all_gather_topk
+from .sharded_ivf import built_on_rank0, shard_rows
 
 GROUP_CAP, SLOT_GROUP = 32, 8  # IvfIndex.search_batch's slot shape: 32 queries a slot, 8 slots a K4 block
+
+
+def _numpy(tensors) -> tuple:
+    return tuple(t.cpu().numpy() for t in tensors)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -78,6 +83,10 @@ class TieredIvf:
     def device(self) -> torch.device:
         return self.centroids.device
 
+    @property
+    def k(self) -> int:
+        return int(self.centroids.shape[0])
+
     @classmethod
     def from_ivf(cls, index: IvfIndex, device="cuda") -> "TieredIvf":
         """Host copies of ``index``'s blocks (wherever it lives), its
@@ -97,28 +106,15 @@ class TieredIvf:
         return cls.from_ivf(IvfIndex.build(raw_vectors, device=device, **kw), device=device)
 
     @classmethod
-    def load(cls, path: str, device="cuda") -> "TieredIvf":
+    def load(cls, path: str, device="cuda", rows: tuple[int, int] | None = None) -> "TieredIvf":
         """Serve an ``IvfIndex.save`` file (either package's): the blocks,
         ids and scales stay memory-mapped, only the centroids are read and
-        moved to ``device``."""
-        with open(path, "rb") as f:
-            meta = gio._read_metadata(f.read(gio.METADATA_LEN), IVF_MAGIC)
-        k, L, d = meta["k_phys"], meta["cluster_cap"], meta["dim"]
-        off = gio.METADATA_LEN
-
-        def region(dtype, shape):
-            nonlocal off
-            arr = np.memmap(path, dtype=dtype, mode="r", offset=off, shape=shape)
-            off += arr.nbytes
-            return arr
-
-        cent = np.array(region("<f4", (k, d)))
-        blocks = region(_FILE_DTYPES[meta["dtype"]], (k, L, d))
-        ids = region("<i4", (k, L))
-        scales = region("<f4", (k, L)) if meta["has_scales"] else np.ones((k, L), np.float32)
+        moved to ``device``.  ``rows=(lo, hi)`` serves block rows [lo, hi)."""
+        meta, (cent, blocks, ids, *scales) = file_rows(path, rows)
         return cls(
-            centroids=torch.as_tensor(cent, device=device), host_blocks=blocks, host_block_ids=ids,
-            host_block_scales=scales, n_total=meta["n_total"], block_dtype=_DTYPES[meta["dtype"]],
+            centroids=torch.as_tensor(np.array(cent), device=device), host_blocks=blocks, host_block_ids=ids,
+            host_block_scales=scales[0] if scales else np.ones(ids.shape, np.float32), n_total=meta["n_total"],
+            block_dtype=_DTYPES[meta["dtype"]],
         )
 
     # -- one batch's fetch ---------------------------------------------------
@@ -158,6 +154,7 @@ class TieredIvf:
         return (q, *fetched), done
 
     def _score(self, prepared, num_neighbors):
+        """One prepared batch scored on the device: (ids, dists) tensors."""
         (q, blocks, ids, scales, inv), done = prepared
         if done is not None:
             current = torch.cuda.current_stream(self.device)
@@ -165,11 +162,10 @@ class TieredIvf:
             for t in (q, blocks, ids, scales, inv):
                 t.record_stream(current)
         B, nprobe = inv.shape
-        out = search_probed(
+        return search_probed(
             inv, blocks, ids, scales, q, k_out=num_neighbors, group_cap=GROUP_CAP,
             num_slots=slot_count(blocks.shape[0], B, nprobe, GROUP_CAP), slot_group=SLOT_GROUP,
         )
-        return tuple(x.cpu().numpy() for x in out)
 
     def _streams(self):
         """The prefetch stream (after the caller's pending work) and two
@@ -182,10 +178,10 @@ class TieredIvf:
 
     # -- search ----------------------------------------------------------------
 
-    def search_batches(self, query_batches, num_neighbors: int = 10, *, nprobe: int = 16):
-        """Yield (ids int32[B, k], dists f32[B, k]) numpy results batch by
-        batch, batch k+1's probe, gather and copy running on a worker
-        thread while batch k is scored."""
+    def prepared_batches(self, query_batches, nprobe: int):
+        """Yield each batch prepared for ``_score``, batch k+1's probe,
+        gather and copy running on a worker thread while the caller scores
+        batch k."""
         stream, slots = self._streams()
         it = iter(query_batches)
         first = next(it, None)
@@ -199,13 +195,73 @@ class TieredIvf:
                 nxt = next(it, None)
                 i += 1
                 fut = None if nxt is None else ex.submit(self._prepare, nxt, nprobe, slots[i % 2], stream)
-                yield self._score(prepared, num_neighbors)
+                yield prepared
+
+    def search_batches(self, query_batches, num_neighbors: int = 10, *, nprobe: int = 16):
+        """Yield (ids int32[B, k], dists f32[B, k]) numpy results batch by
+        batch, through the two-deep pipeline of ``prepared_batches``."""
+        for prepared in self.prepared_batches(query_batches, nprobe):
+            yield _numpy(self._score(prepared, num_neighbors))
 
     def search_batches_sequential(self, query_batches, num_neighbors: int = 10, *, nprobe: int = 16):
         """``search_batches`` without the overlap: each batch prepared, then scored."""
         stream, slots = self._streams()
         for batch in query_batches:
-            yield self._score(self._prepare(batch, nprobe, slots[0], stream), num_neighbors)
+            yield _numpy(self._score(self._prepare(batch, nprobe, slots[0], stream), num_neighbors))
+
+    def search_batch(self, queries, num_neighbors: int = 10, *, nprobe: int = 16):
+        """One batch: (ids int32[B, k], dists f32[B, k]) numpy arrays."""
+        return next(iter(self.search_batches([queries], num_neighbors, nprobe=nprobe)))
+
+
+@dataclass(frozen=True)
+class TieredShardedIvf:
+    """Host-tiered blocks split over a group (port of the JAX package's
+    ``TieredShardedIvf``): each rank serves its own block rows as a
+    ``TieredIvf`` (blocks memory-mapped on its host, centroids on its
+    device) and the per-rank top-k merge through ``all_gather_topk``.
+
+    Rows are split as ``ShardedIvf`` splits them (``k_local`` a rank after
+    padding to a multiple of the world size) and ``nprobe`` counts per
+    rank.  A rank probes its local top-``nprobe`` blocks, the set JAX's
+    per-shard ``argpartition`` picks; the padding blocks, which only the
+    last ranks have, are not held at all: they carry no ids, so a rank
+    probes at most its real blocks and the answer is the same.  Fetched
+    blocks are scored through ``TieredIvf``'s grouped route (K4 on the
+    card); JAX contracts them in a bf16 einsum, so the two agree within the
+    IVF tolerance, not in bits.
+    """
+
+    group: Group
+    local: TieredIvf  # this rank's real rows
+    n_total: int
+
+    @classmethod
+    def from_ivf(cls, index: IvfIndex, group: Group) -> "TieredShardedIvf":
+        """Host copies of this rank's rows of ``index``; their centroids on the rank's device."""
+        _, lo, hi = shard_rows(index.k, group)
+        return cls(group, TieredIvf.from_ivf(index.rows(lo, hi), device=group.device), index.n_total)
+
+    @classmethod
+    def build(cls, raw_vectors, group: Group, **kw) -> "TieredShardedIvf":
+        """``IvfIndex.build(raw_vectors, **kw)`` once (rank 0), each rank's rows moved to its host."""
+        return cls.from_ivf(built_on_rank0(raw_vectors, group, **kw), group)
+
+    @classmethod
+    def load(cls, path: str, group: Group) -> "TieredShardedIvf":
+        """Serve an ``IvfIndex.save`` file: each rank memory-maps only its own block rows."""
+        _, lo, hi = shard_rows(read_metadata(path)["k_phys"], group)
+        local = TieredIvf.load(path, device=group.device, rows=(lo, hi))
+        return cls(group, local, local.n_total)
+
+    def search_batches(self, query_batches, num_neighbors: int = 10, *, nprobe: int = 16):
+        """Yield (ids int32[B, k] global, dists f32[B, k]) numpy results,
+        the same on every rank: this rank's pipelined tiered search of each
+        batch, then ``all_gather_topk``.  Every rank takes the same batches."""
+        nprobe = min(nprobe, self.local.k)
+        for prepared in self.local.prepared_batches(query_batches, nprobe):
+            ids, d = self.local._score(prepared, num_neighbors)
+            yield _numpy(all_gather_topk(ids, d, num_neighbors, self.group))
 
     def search_batch(self, queries, num_neighbors: int = 10, *, nprobe: int = 16):
         """One batch: (ids int32[B, k], dists f32[B, k]) numpy arrays."""

@@ -1,8 +1,8 @@
 """The CUDA kernels on the card (K1, K2, K3, K4, K5) against their plain
 PyTorch versions, the searches and builds that launch them, and the int8
 elements on the card (exact integer dots, K1 on int8-provenance tables,
-the cache-fed int8 build, the element file), reorder on the card, and the
-online builder's threads on one card.
+the cache-fed int8 build, the element file), reorder on the card, the
+online builder's threads on one card, and a world of one rank through NCCL.
 
 Needs an NVIDIA GPU and nvcc; every test skips elsewhere.  This file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -711,3 +711,38 @@ def test_tiered_ivf_on_card_matches_resident(cuda, tmp_path):
                 for (gi, gd), (wi, wd) in zip(got, want):
                     assert np.array_equal(gi, wi) and np.array_equal(gd, wd)
             assert K.ivf_score_slots_grouped.launches == before + 2 * len(batches)
+
+
+# -- multi-device serving ----------------------------------------------------
+
+
+def test_sharded_ivf_world_of_one_nccl_matches_resident(cuda, tmp_path):
+    """A world of one rank through NCCL on cuda:0 (a spawned rank,
+    ``torch_rank_jobs.world_of_one_job``): ``ShardedIvf.load`` gives the
+    resident ``IvfIndex.search_batch``'s ids and distances bit for bit
+    (no padding, the same K4 route, a merge of one sorted list)."""
+    import torch_rank_jobs as jobs
+
+    rng = np.random.default_rng(1)
+    centers = rng.standard_normal((40, 48)).astype(np.float32)
+    x = (centers[rng.integers(0, 40, 6000)] + 0.35 * rng.standard_normal((6000, 48))).astype(np.float32)
+    path = str(tmp_path / "bf16.ivf")
+    g.IvfIndex.build(x, n_clusters=40, kmeans_iters=5, cluster_cap=64, device=cuda).save(path)
+    out = g.run_ranks(jobs.world_of_one_job, 1, path, x[:512], (4, 16, 64), backend="nccl", device="cuda",
+                      timeout=300)[0]
+    for nprobe, ((si, sd), (ri, rd)) in out.items():
+        assert np.array_equal(si, ri) and np.array_equal(sd, rd), nprobe
+
+
+def test_dryrun_nccl_world_a_gpu_a_rank(cuda):
+    """The port's dry run through NCCL over every card of the host, rank r
+    on ``cuda:r`` (the launcher's placement): each engine at least as good
+    as the single-device search.  Needs two cards or more."""
+    from granne_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two CUDA devices or more")
+    K.load_kernel()  # built here, before the ranks start
+    recalls = dryrun_multichip(world, timeout=600)
+    assert min(recalls.values()) == recalls["single_device"] > 0.9

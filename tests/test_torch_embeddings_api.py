@@ -3,8 +3,10 @@ packed 3-byte ids and CSR terms, the ``"embeddings"`` element file (bytes
 equal both ways, chunked and ``raw64`` offset tables), the ETL
 (``parse_elements_and_save_to_disk``, ``compute_embeddings_and_save_to_disk``
 and its ``i1`` file), ``Embeddings``, ``WordEmbeddingsGranne``,
-``Granne.get_element``/``get_internal_element``, and ``HostGranne``'s
-refusal of an embeddings file.
+``Granne.get_element``/``get_internal_element``, ``HostGranne``'s refusal
+of an embeddings file, and ``GranneBuilder`` over ``SumEmbeddings``
+(resuming a JAX-saved ``"embeddings"`` pair; ``append`` takes term-id
+lists and refuses raw vectors).
 
 Three faults of the JAX package are shown not copied: a text query embeds
 all its words (JAX embeds the first only), ``extend`` keeps every term of
@@ -36,6 +38,7 @@ from granne_tpu_torch import (
     BuildConfig,
     Embeddings,
     Granne,
+    GranneBuilder,
     HostGranne,
     SumEmbeddings,
     WordDict,
@@ -293,3 +296,71 @@ def test_reference_faults_not_copied(rng):
     jrows = jtab[:, : M * D].view(np.float32)
     assert np.array_equal(jrows, jrows.astype(jnp.bfloat16).astype(np.float32))  # JAX's: bf16-rounded
     assert not np.array_equal(jrows[mask.numpy()], want[mask].numpy())
+
+
+def _jaccard(a, b):
+    agree = total = 0
+    for ra, rb in zip(a, b):
+        sa = frozenset(int(x) for x in ra if x >= 0)
+        sb = frozenset(int(x) for x in rb if x >= 0)
+        union = len(sa | sb)
+        agree += len(sa & sb) if union else 1
+        total += union if union else 1
+    return agree / total
+
+
+def test_builder_resumes_a_jax_embeddings_pair(tmp_path):
+    """JAX builds the first half of the bags and saves the index and the
+    whole csr24 element file; the port's ``GranneBuilder.from_index`` (and
+    ``from_bytes``) resumes it, and its graph matches JAX's resumed build
+    (per-layer edge Jaccard > 0.95, tests/test_torch_builder.py's bar).
+    The port saves, loads and searches the result."""
+    emb, lists = _parts(np.random.default_rng(31), n=600)
+    cfg = dict(num_neighbors=10, max_search=24)
+    j = JSum.from_parts(emb, lists)
+    half = J.build_layers(j, J.BuildConfig(**cfg), num_elements=300)
+    ipath, epath = str(tmp_path / "half.gtz"), str(tmp_path / "all.gt")
+    jio.save_index(half, ipath, compressed=True)
+    jio.save_elements(j, epath)
+    want = J.build_layers(j, J.BuildConfig(**cfg), state=half)
+
+    b = GranneBuilder.from_index(ipath, epath, device="cpu", **cfg)
+    assert b.element_type == "embeddings" and b.indexed_elements == 300 and len(b) == 600
+    b.build()
+    got = b.get_index().layers
+    assert got.counts == tuple(want.counts)
+    for a, c in zip(got.as_numpy(), want.as_numpy()):
+        assert a.shape == c.shape and _jaccard(a, c) > 0.95
+    with open(ipath, "rb") as fi, open(epath, "rb") as fe:
+        again = GranneBuilder.from_bytes(fi.read(), fe.read(), device="cpu", **cfg)
+    again.build()
+    assert all(np.array_equal(a, c) for a, c in zip(again.get_index().layers.as_numpy(), got.as_numpy()))
+
+    b.save_index(str(tmp_path / "i.gtz"))
+    b.save_elements(str(tmp_path / "e.gt"))
+    assert filecmp.cmp(str(tmp_path / "e.gt"), epath, shallow=False)  # nothing appended: the same file
+    index = load_granne(str(tmp_path / "i.gtz"), str(tmp_path / "e.gt"), device="cpu")
+    ids, d = index.search_batch(np.stack([index.get_element(i) for i in range(0, 600, 5)]), 24, 1)
+    assert float(np.mean(d[:, 0].numpy() <= 1e-5)) > 0.95  # an element finds itself or an equal bag
+
+
+def test_builder_appends_term_lists():
+    """``append`` on an ``"embeddings"`` builder takes one term-id list or
+    a list of them, and refuses raw vectors (JAX's builder labels the
+    container ``angular_int`` and would feed them to ``extend``)."""
+    emb, lists = _parts(np.random.default_rng(32), n=240)
+    b = GranneBuilder.from_elements(SumEmbeddings.from_parts(emb, lists[:100], device="cpu"),
+                                    num_neighbors=8, max_search=16)
+    b.append(lists[100])
+    b.append(lists[101:200])
+    b.append(np.array(lists[200]))
+    for bad in (np.ones(D, np.float32), [0.5, 1.0], np.ones((2, D), np.float32), [[1, 2], [0.5]]):
+        with pytest.raises(ValueError, match="term-id lists"):
+            b.append(bad)
+    assert len(b) == 201 and b.elements.get_terms(150) == [int(t) for t in lists[150]]
+    b.build()
+    assert b.indexed_elements == 201
+    np.testing.assert_allclose(b.get_element(150), _unit(emb[lists[150]].sum(axis=0)), atol=1e-6)
+    assert b.search(b.get_element(200), 16, 1)[0][1] <= 1e-5
+    with pytest.raises(ValueError, match="SumEmbeddings"):
+        GranneBuilder("embeddings", device="cpu")

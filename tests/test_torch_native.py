@@ -1,5 +1,6 @@
 """The port's own adjacency codec, and the rule that the port reaches into
-no file of the JAX package.
+no file of the JAX package and imports no jax, in its modules and in the
+ranks that its launcher spawns.
 
 No jax import: the codec is plain C++ built with g++ at first use.  That a
 compressed index written by the port equals the JAX package's byte for
@@ -13,6 +14,7 @@ from pathlib import Path
 import numpy as np
 
 import granne_tpu_torch
+from granne_tpu_torch import run_ranks
 from granne_tpu_torch.native import codec, codec_source
 
 REPO = Path(__file__).resolve().parents[1]
@@ -53,24 +55,50 @@ def test_codec_round_trips_a_ragged_adjacency():
         assert (got[r, len(ids):] == -1).all()
 
 
+FORBIDDEN = ("granne_tpu", "jax", "jaxlib")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith((f + ".", f + "/")) for f in FORBIDDEN)
+
+
 def _reaches_jax_package(node: ast.AST) -> bool:
+    """An import of the JAX package or of jax, by statement or by call."""
     if isinstance(node, ast.Import):
-        return any(a.name == "granne_tpu" or a.name.startswith("granne_tpu.") for a in node.names)
+        return any(_forbidden(a.name) for a in node.names)
     if isinstance(node, ast.ImportFrom):
-        mod = node.module or ""
-        return node.level == 0 and (mod == "granne_tpu" or mod.startswith("granne_tpu."))
-    if isinstance(node, ast.Call):  # find_spec("granne_tpu"), import_module("granne_tpu..."), __import__
+        return node.level == 0 and _forbidden(node.module or "")
+    if isinstance(node, ast.Call):  # find_spec("granne_tpu"), import_module("jax..."), __import__
         args = [a.value for a in node.args if isinstance(a, ast.Constant) and isinstance(a.value, str)]
-        return any(a == "granne_tpu" or a.startswith(("granne_tpu.", "granne_tpu/")) for a in args)
+        return any(_forbidden(a) for a in args)
     return False
 
 
 def test_no_port_module_reaches_into_the_jax_package():
+    paths = sorted(PORT.rglob("*.py"))
+    scanned = {str(p.relative_to(PORT)) for p in paths}
+    assert {f"parallel/{m}.py" for m in ("mesh", "sharded", "sharded_ivf", "tiering", "dryrun")} <= scanned
     found = [
         f"{path.relative_to(PORT)}:{node.lineno}"
-        for path in sorted(PORT.rglob("*.py"))
+        for path in paths
         for node in ast.walk(ast.parse(path.read_text()))
         if _reaches_jax_package(node)
     ]
     assert found == []
-    assert not any("find_spec" in p.read_text() for p in PORT.rglob("*.py"))
+    assert not any("find_spec" in p.read_text() for p in paths)
+
+
+def test_the_scan_finds_jax_imports():
+    for code in ("import jax", "import jax.numpy as jnp", "from jax import lax", "import granne_tpu.api",
+                 "from granne_tpu import api", "importlib.import_module('jax')"):
+        assert any(_reaches_jax_package(n) for n in ast.walk(ast.parse(code))), code
+    for code in ("import granne_tpu_torch", "from . import jax_like", "import jaxtyping"):
+        assert not any(_reaches_jax_package(n) for n in ast.walk(ast.parse(code))), code
+
+
+def test_a_spawned_rank_loads_neither_jax_nor_the_jax_package():
+    """``run_ranks`` starts each rank from a fresh interpreter: the rank
+    imports the port and its job's module, and nothing of jax."""
+    import torch_rank_jobs as jobs
+
+    assert run_ranks(jobs.modules_job, 2, backend="gloo", device="cpu", timeout=120) == [[], []]
