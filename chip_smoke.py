@@ -162,8 +162,36 @@ In the order it runs:
     world and route, the merge's time and, for gloo, the bytes through the
     host a batch, the step's wall.  K4 and K5 must have launched in the
     ranks (``sharded_path_launches``).
+16. The data-parallel build (``build_layers(..., group=...)``,
+    ``parallel/dp_build.py``: each wave's search split over the ranks, its
+    edges all-gathered, the graph update replicated), ranks spawned by
+    ``run_ranks`` after the parent has built the kernels, at step 5's
+    config.  (a) A world of one through NCCL on cuda:0 over all 200,000
+    vectors; (b) a world of four through gloo, every rank on cuda:0, over
+    the same 200,000; (c) a world of four through gloo with the flat
+    cache-fed build (K1 in every rank's beam) over step 7's 50,000.  Each
+    build must have step 5's (step 7's) layer counts, byte-equal layers on
+    every rank, and rank 0's graph served like step 5 (bf16 copy, flat
+    cache, K1) must reach recall@10 0.95 at some ef <= 120 and stay within
+    0.01 (c: 0.02) of step 5's (step 7's) recall at every ef.  (a) and (b)
+    must have edge Jaccard > 0.95 against step 5's graph over all layers
+    and on every layer of a wave (1,024) or more.  Logged: every layer's
+    Jaccard (the group's warm-up waves are S elements where one device's
+    are 8, which moves the layers built in warm-up waves alone most: 0.924
+    on the 60-element layer in an H100 run), whether (b)'s layers equal
+    (a)'s, each build's seconds and vectors/s beside step 5's, the
+    all-gather's share of the build (a rank's waves timed on the host with
+    the device synchronised before and after the collective,
+    ``trace.summary()``), the step's wall.  Four ranks share one card: no
+    figure is a scale-out rate.  K1 must have launched in (c)'s ranks
+    (``dp_build_path_launches``).
+17. ``hnsw_profile``: under ``torch.profiler``, one warm serve batch of
+    1,024 queries at ef 32 through K1 (step 5's index) and one warm segment
+    of eight reinsert waves (wave 1,024 at ef 50, the build's second pass)
+    over a copy of step 5's bottom layer: host wall, device time, busy
+    share, device op count and the five largest ops of each.  No gate.
 
-Numbers of steps 10-15 are logged beside ``nvidia-smi``'s card name and
+Numbers of steps 10-17 are logged beside ``nvidia-smi``'s card name and
 power limit, host figures also beside the host's CPU model and threads.
 
 Every kernel and its plain version are timed on the same inputs in turns
@@ -257,6 +285,11 @@ OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 IVF_FILE, I8_IVF_FILE = os.path.join(OUT_DIR, "index.ivf"), os.path.join(OUT_DIR, "index_i8.ivf")
 SHARD_WORLD, SHARD_NPROBES, SHARD_QPS_NPROBE, SHARD_TIMEOUT = 4, (4, 16, 64), 16, 600
 RECALL_EPS = 1e-9  # "sharded recall >= one-device recall" up to the summation order of recall_at_k
+VECS_FILE = os.path.join(OUT_DIR, "vecs.npy")  # bench_data()'s vectors for the ranks of steps 15 and 16
+# step 16, the data-parallel build: the gloo world, the Jaccard bar against step 5's graph, the recall
+# step 5 (a, b) may differ by at any ef (c: RECALL_SLACK against step 7), and the time a world may take
+DP_WORLD, DP_JACCARD, DP_SLACK, DP_TIMEOUT = 4, 0.95, 0.01, 600
+PROFILE_WAVES = 8  # hnsw_profile's segment of reinsert waves
 
 
 def log(msg: str) -> None:
@@ -678,7 +711,7 @@ def main_path(torch, g, vecs, queries, gt):
     from granne_tpu_torch.ops.kernels.nbr_score import gather_score_flat
 
     reset_launch_counts()  # count the main path's launches only
-    builder, _ = build_index(torch, g, vecs, "main path")
+    builder, build_s = build_index(torch, g, vecs, "main path")
 
     out_dir = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
@@ -702,7 +735,7 @@ def main_path(torch, g, vecs, queries, gt):
     if launches <= 0:
         fail("the main path never launched gather_score_flat")
     log(f"gather_score_flat launches in the main path: {launches}")
-    return launches, recalls
+    return launches, recalls, build_s
 
 
 def serve_sweep(torch, search, gt, n, what, need_bar=True, recall_of=None):
@@ -822,7 +855,8 @@ def tiled_cache_path(torch, g, vecs, queries, gt, main_recalls):
 
 def flat_cache_path(torch, g, vecs, queries):
     """The flat cache-fed build (K1 in the build beam) at FLAT_BUILD_N and
-    its bf16 flat-cache serving.  Returns K1's launches in the build."""
+    its bf16 flat-cache serving.  Returns K1's launches in the build and
+    the serving recalls by ef."""
     from granne_tpu_torch.index.granne import Granne
     from granne_tpu_torch.ops.kernels.nbr_score import gather_score_flat
 
@@ -836,11 +870,11 @@ def flat_cache_path(torch, g, vecs, queries):
     log(f"gather_score_flat launches in the flat cache-fed build: {launches}")
     idx = builder.get_index()
     serve = Granne(layers=idx.layers, elements=idx.elements.as_bf16()).with_neighbor_cache("flat")
-    serve_sweep(torch, batched(serve, queries), gt, FLAT_BUILD_N,
-                f"flat cache-fed build n={FLAT_BUILD_N}, bf16+flat cache")
+    recalls = serve_sweep(torch, batched(serve, queries), gt, FLAT_BUILD_N,
+                          f"flat cache-fed build n={FLAT_BUILD_N}, bf16+flat cache")
     log(f"flat cache-fed build n={FLAT_BUILD_N}: self-recall@1={self_recall(torch, serve, sub)} "
         f"over {SELF_RECALL_ROWS} rows (bf16+flat cache, ef={EFS[0]})")
-    return launches
+    return launches, recalls
 
 
 def self_recall(torch, index, rows) -> float:
@@ -1777,7 +1811,7 @@ def sharded_path(torch, g, vecs, queries, gt, card):
         os.symlink(target, link)
     with open(os.path.join(hnsw_dir, "manifest.json"), "w") as f:
         json.dump({"num_shards": 1, "n_total": N, "shard_offsets": [0]}, f)
-    vecs_file = os.path.join(OUT_DIR, "vecs.npy")
+    vecs_file = VECS_FILE
     np.save(vecs_file, vecs)
 
     t = time.perf_counter()
@@ -1858,35 +1892,201 @@ def sharded_path(torch, g, vecs, queries, gt, card):
     return launches
 
 
-def ivf_profile(torch, ivf, queries, nprobe):
-    """One warm ``search_batch`` of every query per route (K4, fused K5)
-    under ``torch.profiler``: host wall (a second, unprofiled call),
-    summed device time of the kernels and copies, busy share (that sum over
-    the host wall), their count and the five largest by name."""
+def device_profile(torch, run):
+    """Host wall (ms) of one warm, unprofiled ``run()`` after a first call,
+    then one more ``run()`` under ``torch.profiler``: the device time of its
+    kernels and copies summed (ms), their count and the five largest by
+    name (spans' annotations on the device track left out).  The device
+    figures are None where the profiler saw no device op."""
     from torch.profiler import ProfilerActivity, profile
 
+    run()
+    t = time.perf_counter()
+    run()
+    wall = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    if not ops:
+        return wall, None, None, None
+    by_name = {}
+    for e in ops:
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3
+    return wall, sum(by_name.values()), len(ops), sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+
+
+def log_profile(what, wall, device, n_ops, top, card):
+    if device is None:
+        log(f"{what}: the profiler saw no device ops (device time not measured); host_wall_ms={wall} [{card}]")
+    else:
+        log(f"{what}: host_wall_ms={wall} device_ms={device} busy={device / wall} device_ops={n_ops} top5={top} "
+            f"[{card}]")
+
+
+def ivf_profile(torch, ivf, queries, nprobe):
+    """One warm ``search_batch`` of every query per route (K4, fused K5)
+    under ``torch.profiler`` (``device_profile``)."""
     for route, kw in (("k4", {}), ("k5_fused", {"fused_topk": True})):
         def run():
             ivf.search_batch(queries, K, nprobe=nprobe, **kw)
             torch.cuda.synchronize()
 
-        run()
-        t = time.perf_counter()
-        run()
-        wall = (time.perf_counter() - t) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-        ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        by_name = {}
-        for e in ops:
-            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3
-        device = sum(by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        if not ops:
-            log(f"ivf profile {route}: the profiler saw no device ops (device time not measured); host_wall_ms={wall}")
-            continue
-        log(f"ivf profile {route}: nprobe={nprobe} batch={len(queries)} host_wall_ms={wall} device_ms={device} "
-            f"busy={device / wall} device_ops={len(ops)} top5={top}")
+        log_profile(f"ivf profile {route}: nprobe={nprobe} batch={len(queries)}",
+                    *device_profile(torch, run), torch.cuda.get_device_name(0))
+
+
+def hnsw_profile(torch, g, queries, card):
+    """Step 17: one serve batch of SERVE_B at EFS[0] through K1 on step 5's
+    index, and one segment of PROFILE_WAVES reinsert waves (the build's
+    second pass, at BUILD_EF // 2) over a copy of step 5's bottom layer,
+    each under ``device_profile``; each of the three calls of the build
+    segment re-inserts its own waves, from the top of the id range down."""
+    from granne_tpu_torch.index.builder import _run_waves
+    from granne_tpu_torch.index.granne import Granne
+
+    loaded = g.load_granne(os.path.join(OUT_DIR, "index.gtz"), os.path.join(OUT_DIR, "elements.gt"), device="cuda")
+    serve = Granne(layers=loaded.layers, elements=loaded.elements.as_bf16()).with_neighbor_cache("flat")
+
+    def serve_batch():
+        serve.search_batch(queries[:SERVE_B], max_search=EFS[0], num_neighbors=K)
+        torch.cuda.synchronize()
+
+    log_profile(f"hnsw profile serve: K1 bf16+flat cache ef={EFS[0]} batch={SERVE_B}",
+                *device_profile(torch, serve_batch), card)
+    cfg = g.BuildConfig(num_neighbors=M, max_search=BUILD_EF, wave_size=WAVE, expand=EXPAND)
+    prev, adj = loaded.layers.layers[:-1], loaded.layers.layers[-1].clone()
+    seg, hi = PROFILE_WAVES * WAVE, [N]
+
+    def build_segment():
+        _run_waves(prev, adj, loaded.elements, hi[0] - seg, hi[0], cfg, M, BUILD_EF // 2, True)
+        torch.cuda.synchronize()
+        hi[0] -= seg
+
+    log_profile(f"hnsw profile build: {PROFILE_WAVES} reinsert waves of {WAVE} at ef={BUILD_EF // 2} over step 5's "
+                f"bottom layer", *device_profile(torch, build_segment), card)
+
+
+# -- step 16: the data-parallel build -----------------------------------------
+
+
+def dp_build_rank(group, n, cache_layout):
+    """Step 16, a rank: ``build_layers(group=group)`` of the first ``n`` of
+    VECS_FILE's vectors at step 5's config (a cache-fed build with
+    ``cache_layout``).  The all-gather is timed in a ``trace.span`` with the
+    device synchronised before the clock starts and after the collective
+    (gloo's host copy synchronises there anyway).  Returns the build's
+    seconds, its counts, each layer's SHA-256, rank 0's layers, K1's
+    launches and the collective's seconds and count."""
+    import hashlib
+
+    import torch
+
+    import granne_tpu_torch as g
+    from granne_tpu_torch.ops import distance
+    from granne_tpu_torch.ops.kernels.nbr_score import gather_score_flat
+    from granne_tpu_torch.parallel import dp_build
+    from granne_tpu_torch.utils import trace
+
+    distance.full_f32()
+    gather = dp_build._gather_wave
+
+    def timed_gather(*args):
+        torch.cuda.synchronize()
+        with trace.span("dp_build/all_gather", block=True):
+            return gather(*args)
+
+    dp_build._gather_wave = timed_gather
+    cache = {"neighbor_cache": True, "neighbor_cache_layout": cache_layout} if cache_layout else {}
+    cfg = g.BuildConfig(num_neighbors=M, max_search=BUILD_EF, wave_size=WAVE, expand=EXPAND, **cache)
+    elements = g.AngularVectors.from_raw(np.load(VECS_FILE, mmap_mode="r")[:n], device=group.device)
+    reset_launch_counts()
+    trace.reset()
+    group.barrier()
+    t = time.perf_counter()
+    stack = g.build_layers(elements, cfg, group=group)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    layers = stack.as_numpy()
+    spans = trace.summary()["dp_build/all_gather"]
+    return {"group": group.describe(), "seconds": seconds, "counts": stack.counts,
+            "digests": [hashlib.sha256(a.tobytes()).hexdigest() for a in layers],
+            "layers": layers if group.rank == 0 else None, "k1": gather_score_flat.launches,
+            "gather_s": spans["total_s"], "waves": spans["count"]}
+
+
+def dp_world(torch, g, world, backend, n, cache_layout, what, card):
+    """One world of step 16: spawn, check the ranks agree, log times.
+    Returns rank 0's result and the launches of K1 in all ranks."""
+    t = time.perf_counter()
+    ranks = g.run_ranks(dp_build_rank, world, n, cache_layout, backend=backend, device="cuda", timeout=DP_TIMEOUT)
+    wall = time.perf_counter() - t
+    out = ranks[0]
+    for r, other in enumerate(ranks):
+        if other["digests"] != out["digests"] or other["counts"] != out["counts"]:
+            fail(f"{what}: rank {r}'s layers differ from rank 0's")
+    share = [o["gather_s"] / o["seconds"] for o in ranks]
+    log(f"{what}: {out['group']}; build n={n} M={M} ef={BUILD_EF} wave={WAVE} expand={EXPAND} "
+        f"cache={cache_layout}: seconds a rank {[o['seconds'] for o in ranks]}, vectors_per_s "
+        f"{n / max(o['seconds'] for o in ranks)}; layer_counts={out['counts']}; the ranks' layers byte-equal "
+        f"(SHA-256 of {len(out['digests'])} layers); all-gather {ranks[0]['waves']} waves, "
+        f"{[o['gather_s'] for o in ranks]} s a rank, share of the build {share}; wall {wall} s (spawn included) "
+        f"[{card}]")
+    return out, sum(o["k1"] for o in ranks)
+
+
+def dp_serve(torch, g, vecs, queries, gt, out, ref_recalls, slack, what):
+    """Serve rank 0's graph like step 5 (bf16 copy, flat cache, K1) and hold
+    it within ``slack`` of ``ref_recalls`` at every ef."""
+    from granne_tpu_torch.index.granne import Granne
+
+    elements = g.AngularVectors.from_raw(vecs, device="cuda")
+    layers = g.LayerStack.from_numpy(out["layers"], device="cuda")
+    serve = Granne(layers=layers, elements=elements.as_bf16()).with_neighbor_cache("flat")
+    recalls = serve_sweep(torch, batched(serve, queries), gt, len(vecs), f"{what}, bf16+flat cache")
+    gaps = {ef: recalls[ef] - ref_recalls[ef] for ef in EFS}
+    log(f"{what}: recall@{K} minus the one-device build's by ef {gaps}")
+    if max(abs(x) for x in gaps.values()) > slack:
+        fail(f"{what}: recall differs from the one-device build's by more than {slack}: {gaps}")
+
+
+def dp_build_path(torch, g, vecs, queries, gt, main_recalls, main_build_s, flat_recalls, card):
+    """Step 16 (see the module docstring).  Returns K1's launches in (c)'s ranks."""
+    from granne_tpu_torch.parallel.dryrun import layer_jaccard
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ref = g.load_granne(os.path.join(OUT_DIR, "index.gtz"), os.path.join(OUT_DIR, "elements.gt"), device="cpu")
+    ref_layers = ref.layers.as_numpy()
+    log(f"dp build: step 5's one-device build of n={N}: seconds={main_build_s} vectors_per_s={N / main_build_s} "
+        f"[{card}]")
+    digests = None
+    for world, backend, what in ((1, "nccl", "dp build (a) world of 1"),
+                                 (DP_WORLD, "gloo", f"dp build (b) world of {DP_WORLD}")):
+        out, _ = dp_world(torch, g, world, backend, N, None, what, card)
+        if out["counts"] != ref.layers.counts:
+            fail(f"{what}: layer counts {out['counts']} differ from step 5's {ref.layers.counts}")
+        per = [layer_jaccard(a, b) for a, b in zip(out["layers"], ref_layers)]
+        by_layer = [a / u for a, u in per]
+        pooled = sum(a for a, _ in per) / sum(u for _, u in per)
+        log(f"{what}: edge Jaccard against step 5's graph by layer {by_layer}, pooled {pooled}")
+        held = [j for j, c in zip(by_layer, out["counts"]) if c >= WAVE]
+        if pooled <= DP_JACCARD or min(held) <= DP_JACCARD:
+            fail(f"{what}: edge Jaccard against step 5's graph {pooled} pooled, {held} on the layers of a wave "
+                 f"or more, not above {DP_JACCARD}")
+        if digests is not None:
+            log(f"{what}: layers byte-equal to (a)'s: {out['digests'] == digests}")
+        digests = out["digests"]
+        dp_serve(torch, g, vecs, queries, gt, out, main_recalls, DP_SLACK, what)
+        del out
+    what = f"dp build (c) world of {DP_WORLD}, flat cache-fed"
+    sub = vecs[:FLAT_BUILD_N]
+    out, launches = dp_world(torch, g, DP_WORLD, "gloo", FLAT_BUILD_N, "flat", what, card)
+    dp_serve(torch, g, sub, queries, exact_topk(torch, sub, queries), out, flat_recalls, RECALL_SLACK, what)
+    log(f"gather_score_flat launches in (c)'s ranks: {launches}; step 16 wall {time.perf_counter() - t0} s; "
+        f"{DP_WORLD} ranks share one card: no scale-out figure [{card}]")
+    if launches <= 0:
+        fail("the flat cache-fed data-parallel build never launched gather_score_flat in its ranks")
+    return launches
 
 
 def main() -> None:
@@ -1964,11 +2164,11 @@ def main() -> None:
     no_jax("K3/K4/K5 phase")
     vecs, queries = bench_data()
     gt = exact_topk(torch, vecs, queries)
-    launches, main_recalls = main_path(torch, g, vecs, queries, gt)
+    launches, main_recalls, main_build_s = main_path(torch, g, vecs, queries, gt)
     no_jax("HNSW path")
     k2_launches = tiled_cache_path(torch, g, vecs, queries, gt, main_recalls)
     no_jax("tiled cache-fed path")
-    flat_cache_path(torch, g, vecs, queries)
+    _, flat_recalls = flat_cache_path(torch, g, vecs, queries)
     no_jax("flat cache-fed path")
     int8_launches = int8_path(torch, g, vecs, queries, gt)
     no_jax("int8 path")
@@ -1989,6 +2189,10 @@ def main() -> None:
     no_jax("tiered IVF path")
     sharded_launches = sharded_path(torch, g, vecs, queries, gt, smi)
     no_jax("sharded path")
+    dp_launches = dp_build_path(torch, g, vecs, queries, gt, main_recalls, main_build_s, flat_recalls, smi)
+    no_jax("data-parallel build")
+    hnsw_profile(torch, g, queries, smi)
+    no_jax("HNSW profile")
 
     def record(name, source, replaces, n_launches, r):
         return {
@@ -2007,7 +2211,7 @@ def main() -> None:
     kernels = [
         {**record("gather_score_flat", nbr_src, "granne_tpu/ops/pallas/nbr_score.py:342", launches, rec),
          "int8_path_launches": int8_launches, "reorder_path_launches": reorder_launches,
-         "embeddings_path_launches": emb_launches["gather_score_flat"],
+         "embeddings_path_launches": emb_launches["gather_score_flat"], "dp_build_path_launches": dp_launches,
          **{key: rec[key] for key in ("int8_unit_lanes_max_abs_err", "int8_code_lanes_max_scaled_err")}},
         {**record("gather_score", nbr_src, "granne_tpu/ops/pallas/nbr_score.py:130", k2_launches, k2_rec),
          "embeddings_path_launches": emb_launches["gather_score"]},

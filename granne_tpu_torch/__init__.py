@@ -14,7 +14,9 @@ the same kernels, with their ETL and a text-query index
 stay in host memory and stream to the card a batch at a time.  Several
 devices serve one index over ``torch.distributed`` (one process a rank):
 ``ShardedIvf`` and ``TieredShardedIvf`` split the IVF blocks,
-``ShardedGranne`` the elements, each merging the ranks' top-k.
+``ShardedGranne`` the elements, each merging the ranks' top-k; and several
+ranks build one HNSW graph together (``build_layers(..., group=...)``,
+each wave's search split over them).
 The module layout mirrors ``granne_tpu``; the on-disk formats are the same
 files.  This package imports torch and numpy, never jax.
 """

@@ -39,6 +39,8 @@ from ..elements.base import supports_cache
 from ..ops import distance, frontier
 from ..ops.nbr_cache import make_neighbor_cache, pack_rows, rows_to_vecs
 from ..ops.topk import INF, UNUSED, sort_by_key
+from ..utils import trace
+from ..utils.progress import ProgressBar
 from . import schedule
 from .graph import LayerStack, empty_layer, grow_layer
 from .heuristic import EPS100, select_neighbors
@@ -436,23 +438,39 @@ def _wave_ranges(start: int, end: int, wave_size: int):
 
 
 def _run_waves(prev_layers, adj, elements, start, end, cfg: BuildConfig, m_eff, max_search, reinsert,
-               nbr_tab=None):
+               nbr_tab=None, group=None):
     """Insert (or, with ``reinsert``, re-insert back to front) the elements
     [start, end) wave by wave.  ``adj`` and its cache ``nbr_tab`` are
-    updated in place."""
+    updated in place.
+
+    On one device each wave runs in a ``trace.span`` ("build/insert_wave"
+    or "build/reinsert_wave"): one span a wave, where the JAX package counts
+    one a warm-up wave or an on-device segment of waves.  With
+    ``cfg.show_progress`` a ``ProgressBar`` on stderr advances a wave at a
+    time.  With a ``group`` the waves are split over its ranks
+    (``parallel.dp_build``) in the JAX package's mesh schedule, without a
+    bar or spans."""
+    if group is not None:
+        _run_waves_group(prev_layers, adj, elements, start, end, cfg, m_eff, max_search, reinsert, nbr_tab, group)
+        return
     kw = dict(m_eff=m_eff, reverse_cap=cfg.reverse_cap, merge_chunk=cfg.merge_chunk)
+    phase = "build/reinsert_wave" if reinsert else "build/insert_wave"
+    bar = ProgressBar(end - start, prefix="reinsert " if reinsert else "insert ") if cfg.show_progress else None
 
     def wave(lo, hi):
-        ids = torch.arange(lo, hi, dtype=torch.int32, device=adj.device)
-        valid = torch.ones((hi - lo,), dtype=torch.bool, device=adj.device)
-        sel_ids, sel_d, active, zero_sel = search_select_phase(
-            prev_layers, adj, elements, ids, valid, m_eff=m_eff, max_search=max_search,
-            expand=cfg.expand, max_iters=cfg.build_max_iters, gather_budget=cfg.gather_budget,
-            nbr_vecs=nbr_tab,
-        )
-        apply_wave_edges(
-            adj, elements, ids, valid, sel_ids, sel_d, active, zero_sel, reinsert=reinsert, nbr_tab=nbr_tab, **kw
-        )
+        with trace.span(phase):
+            ids = torch.arange(lo, hi, dtype=torch.int32, device=adj.device)
+            valid = torch.ones((hi - lo,), dtype=torch.bool, device=adj.device)
+            sel_ids, sel_d, active, zero_sel = search_select_phase(
+                prev_layers, adj, elements, ids, valid, m_eff=m_eff, max_search=max_search,
+                expand=cfg.expand, max_iters=cfg.build_max_iters, gather_budget=cfg.gather_budget,
+                nbr_vecs=nbr_tab,
+            )
+            apply_wave_edges(
+                adj, elements, ids, valid, sel_ids, sel_d, active, zero_sel, reinsert=reinsert, nbr_tab=nbr_tab, **kw
+            )
+        if bar is not None:
+            bar.add(hi - lo)
 
     if reinsert:
         hi = end
@@ -463,9 +481,39 @@ def _run_waves(prev_layers, adj, elements, start, end, cfg: BuildConfig, m_eff, 
     else:
         for lo, hi in _wave_ranges(start, end, cfg.wave_size):
             wave(lo, hi)
+    if bar is not None:
+        bar.finish()
 
 
-def _index_layer(layers: list, counts: list, elements, cfg: BuildConfig, num_elements: int):
+def _run_waves_group(prev_layers, adj, elements, start, end, cfg, m_eff, max_search, reinsert, nbr_tab, group):
+    """``_run_waves`` over a group, in the JAX package's mesh schedule: the
+    wave is ``W = max(S, (wave_size // S) * S)`` for S ranks; an insert
+    pass first inserts geometrically growing prefixes of ``max(S, min(W,
+    cur or S))`` while the layer holds fewer than W, then the rest in waves
+    of W, back to front when reinserting.  (The JAX package runs those
+    waves in segments of 128, one dispatch each; the segments are whole
+    waves aligned to the same end, so the waves are these.)"""
+    from ..parallel import dp_build
+
+    S = group.world
+    W = max(S, (cfg.wave_size // S) * S)
+    cur = start
+    if not reinsert:
+        while cur < min(end, W):
+            size = min(max(S, min(W, cur or S)), end - cur)
+            dp_build.dp_build_waves(
+                group, prev_layers, adj, elements, torch.arange(cur, cur + size, dtype=torch.int32, device=adj.device),
+                cfg, m_eff, max_search, nbr_tab=nbr_tab,
+            )
+            cur += size
+    dp_build.dp_waves(
+        group, prev_layers, adj, elements, cur, end, wave_size=W, m_eff=m_eff, max_search=max_search,
+        expand=cfg.expand, reinsert=reinsert, reverse_cap=cfg.reverse_cap, merge_chunk=cfg.merge_chunk,
+        reverse_order=reinsert, max_iters=cfg.build_max_iters, gather_budget=cfg.gather_budget, nbr_tab=nbr_tab,
+    )
+
+
+def _index_layer(layers: list, counts: list, elements, cfg: BuildConfig, num_elements: int, group=None):
     """Build out the last layer (the reference's
     ``index_elements_in_last_layer``)."""
     total = max(cfg.expected_num_elements or len(elements), len(elements))
@@ -490,14 +538,14 @@ def _index_layer(layers: list, counts: list, elements, cfg: BuildConfig, num_ele
     if cfg.neighbor_cache and supports_cache(elements):
         nbr_tab = make_neighbor_cache(adj, elements, rows=target, layout=cfg.neighbor_cache_layout)
 
-    _run_waves(prev, adj, elements, counts[-1], target, cfg, m_eff, cfg.max_search, False, nbr_tab)
+    _run_waves(prev, adj, elements, counts[-1], target, cfg, m_eff, cfg.max_search, False, nbr_tab, group)
     _, nbr_tab = prune_layer(
         adj, elements, m_eff=m_eff, merge_chunk=cfg.merge_chunk, nbr_tab=nbr_tab,
         rebuild_cache=cfg.reinsert_elements,
     )
     if cfg.reinsert_elements:
         half = max(1, cfg.max_search // 2)
-        _run_waves(prev, adj, elements, 0, target, cfg, m_eff, half, True, nbr_tab)
+        _run_waves(prev, adj, elements, 0, target, cfg, m_eff, half, True, nbr_tab, group)
         # the last prune scores from the elements, not the cache: the JAX
         # package measured the cache's bf16 vectors degrading it
         prune_layer(adj, elements, m_eff=m_eff, merge_chunk=cfg.merge_chunk)
@@ -511,15 +559,28 @@ def build_layers(
     cfg: BuildConfig,
     num_elements: Optional[int] = None,
     state: Optional[LayerStack] = None,
+    group=None,
 ) -> LayerStack:
     """Build (or continue building) the layer stack.
 
     Resumable and idempotent like the reference's ``build_partial``: elements
     already indexed in ``state`` are not indexed again.  ``state`` itself is
     left unchanged.
+
+    With a ``group`` (``parallel.mesh.Group``) every rank calls this with the
+    same elements, config and state, and each wave is split over the ranks
+    (``parallel.dp_build``); the graph, its cache and the elements stay
+    whole on every rank, and every rank returns the same ``LayerStack``.
+    The ranks first check, in one small all-gather, that they hold equal
+    element counts, widths, ``num_elements``, ``state.counts`` and config,
+    and raise ``ValueError`` where they do not.
     """
     if num_elements is None:
         num_elements = len(elements)
+    if group is not None:
+        from ..parallel.dp_build import check_same_inputs
+
+        check_same_inputs(group, elements, cfg, num_elements, state)
     if num_elements == 0:
         return state if state is not None else LayerStack(layers=(), counts=())
     if num_elements > MAX_ELEMENTS:
@@ -542,7 +603,7 @@ def build_layers(
         ]
 
     if layers:
-        _index_layer(layers, counts, elements, cfg, num_elements)
+        _index_layer(layers, counts, elements, cfg, num_elements, group)
 
     while (counts[-1] if counts else 0) < num_elements:
         if layers:
@@ -552,6 +613,6 @@ def build_layers(
         else:
             layers.append(empty_layer(0, cfg.num_neighbors, elements.device))
             counts.append(0)
-        _index_layer(layers, counts, elements, cfg, num_elements)
+        _index_layer(layers, counts, elements, cfg, num_elements, group)
 
     return LayerStack(layers=tuple(layers), counts=tuple(counts))

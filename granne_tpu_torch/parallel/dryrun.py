@@ -1,17 +1,19 @@
-"""The port's multi-device dry run: the serving steps (2-4) of the JAX
-package's ``dryrun_multichip`` (``__graft_entry__.py``) over a group of
-spawned ranks.
+"""The port's multi-device dry run: the steps of the JAX package's
+``dryrun_multichip`` (``__graft_entry__.py``) over a group of spawned ranks.
 
-Each engine serves one small index over ``world`` ranks and must reach the
-recall of the single-device HNSW search on the same data (self-recall@1 of
-the first 32 elements), as the JAX dry run holds it:
+1. The data-parallel build (``build_layers(..., group=...)``, with the
+   reinsert pass): a stack of two layers or more with a non-empty bottom
+   layer, the single-device build's layer counts, and edge Jaccard > 0.95
+   against it over all layers (``dp_build_jaccard``).
+
+Then each engine serves one small index over ``world`` ranks and must
+reach the recall of the single-device HNSW search on the same data
+(self-recall@1 of the first 32 elements), as the JAX dry run holds it; the
+data-parallel build's index (``dp_build``) is held to the same bar:
 
 2. ``ShardedGranne.build`` (an HNSW sub-index a rank), search, merge;
 3. ``ShardedIvf.build`` (IVF blocks split over the ranks), search, merge;
 4. ``TieredShardedIvf.build`` (those blocks kept on each rank's host).
-
-Step 1 of the JAX dry run, the data-parallel build (``parallel/dp_build.py``),
-has no port yet and is not run here.
 
     python -c "from granne_tpu_torch.parallel.dryrun import dryrun_multichip; print(dryrun_multichip(4, 'gloo', 'cpu'))"
     python -c "from granne_tpu_torch.parallel.dryrun import dryrun_multichip; print(dryrun_multichip(4))"  # 4 GPUs, NCCL
@@ -24,6 +26,7 @@ import numpy as np
 from .mesh import Group, run_ranks
 
 QUERIES, K, EF, NPROBE = 32, 5, 16, 2
+JACCARD_BAR = 0.95
 
 
 def _make_data(n: int, d: int, seed: int = 0) -> np.ndarray:
@@ -37,8 +40,25 @@ def _self_recall(ids) -> float:
     return float(np.mean(ids[:, 0] == np.arange(QUERIES)))
 
 
+def layer_jaccard(a: np.ndarray, b: np.ndarray) -> tuple[int, int]:
+    """(edges in both, edges in either) of two layers' rows (int32 [n, M],
+    -1 padded, distinct ids a row); a row empty in both counts as (1, 1)."""
+    va, vb = a >= 0, b >= 0
+    inter = ((a[:, :, None] == b[:, None, :]) & va[:, :, None] & vb[:, None, :]).sum(axis=(1, 2))
+    union = va.sum(axis=1) + vb.sum(axis=1) - inter
+    empty = union == 0
+    return int(np.where(empty, 1, inter).sum()), int(np.where(empty, 1, union).sum())
+
+
+def edge_jaccard(a, b) -> float:
+    """Edge-set Jaccard of two layer lists (numpy, trimmed to their counts),
+    rows pooled over the layers."""
+    per = [layer_jaccard(x, y) for x, y in zip(a, b)]
+    return sum(p for p, _ in per) / sum(u for _, u in per)
+
+
 def _dryrun_rank(group: Group) -> dict:
-    """One rank of the dry run: the single-device bar, then steps 2-4."""
+    """One rank of the dry run: step 1, the single-device bar, then steps 2-4."""
     from ..elements.angular import AngularVectors
     from ..index.builder import BuildConfig, build_layers
     from ..index.granne import Granne
@@ -51,8 +71,18 @@ def _dryrun_rank(group: Group) -> dict:
     cfg = BuildConfig(num_neighbors=8, max_search=16, wave_size=8 * S)
     q = vecs[:QUERIES]
     elements = AngularVectors.from_raw(vecs, device=group.device)
+    stack = build_layers(elements, cfg, group=group)
     single = Granne(layers=build_layers(elements, cfg), elements=elements)
+    if len(stack) < 2 or not bool((stack.layers[-1][: len(vecs)] >= 0).any()):
+        raise RuntimeError(f"the data-parallel build gave {len(stack)} layers or an empty bottom layer")
+    if stack.counts != single.layers.counts:
+        raise RuntimeError(f"the data-parallel layer schedule {stack.counts} differs from {single.layers.counts}")
+    jaccard = edge_jaccard(stack.as_numpy(), single.layers.as_numpy())
+    if jaccard <= JACCARD_BAR:
+        raise RuntimeError(f"the data-parallel build's edge Jaccard {jaccard} against one device <= {JACCARD_BAR}")
     recalls = {"single_device": _self_recall(single.search_batch(q, max_search=EF, num_neighbors=K)[0])}
+    dp = Granne(layers=stack, elements=elements)
+    recalls["dp_build"] = _self_recall(dp.search_batch(q, max_search=EF, num_neighbors=K)[0])
 
     sharded = ShardedGranne.build(AngularVectors, vecs, cfg, group)
     recalls["sharded_granne"] = _self_recall(sharded.search_batch(q, max_search=EF, num_neighbors=K)[0])
@@ -65,15 +95,18 @@ def _dryrun_rank(group: Group) -> dict:
     for engine, recall in recalls.items():
         if recall < recalls["single_device"]:
             raise RuntimeError(f"{engine} recall {recall} below the single-device {recalls['single_device']}")
-    return recalls
+    return {**recalls, "dp_build_jaccard": jaccard}
 
 
 def dryrun_multichip(world: int = 4, backend: str | None = None, device="cuda", timeout: float = 600.0) -> dict:
-    """Run steps 2-4 over ``world`` spawned ranks on ``device``.  ``backend``
+    """Run steps 1-4 over ``world`` spawned ranks on ``device``.  ``backend``
     is NCCL or gloo, by default NCCL on the card and gloo on the CPU.  NCCL
     puts rank r on ``cuda:r`` and needs ``world`` GPUs (else ``ValueError``);
     gloo runs every rank on one card (``"cuda"``: ``cuda:0``), as
-    ``dryrun_multichip(4, "gloo")`` does on a host with one.  Raises if any
-    engine's self-recall@1 falls below the single-device search's, or a rank
-    fails; returns rank 0's recalls, which every rank shares."""
+    ``dryrun_multichip(4, "gloo")`` does on a host with one.  Raises if step
+    1 misses its bars, any engine's self-recall@1 falls below the
+    single-device search's, or a rank fails; returns rank 0's recalls
+    (``single_device``, ``dp_build``, ``sharded_granne``, ``sharded_ivf``,
+    ``tiered_sharded_ivf``) and ``dp_build_jaccard``, which every rank
+    shares."""
     return run_ranks(_dryrun_rank, world, backend=backend, device=device, timeout=timeout)[0]

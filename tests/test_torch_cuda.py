@@ -2,7 +2,9 @@
 PyTorch versions, the searches and builds that launch them, and the int8
 elements on the card (exact integer dots, K1 on int8-provenance tables,
 the cache-fed int8 build, the element file), reorder on the card, the
-online builder's threads on one card, and a world of one rank through NCCL.
+online builder's threads on one card, a world of one rank through NCCL,
+the data-parallel build of four gloo ranks on one card, and trace spans
+that wait for the card.
 
 Needs an NVIDIA GPU and nvcc; every test skips elsewhere.  This file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -713,6 +715,56 @@ def test_tiered_ivf_on_card_matches_resident(cuda, tmp_path):
             assert K.ivf_score_slots_grouped.launches == before + 2 * len(batches)
 
 
+def test_trace_span_blocks_on_k1_calls(cuda):
+    """``trace.span(block=True)`` around K1 calls synchronises the card before
+    its clock stops: one count, a nonzero time."""
+    from granne_tpu_torch.utils import trace
+
+    n, M, d, B, E = 200_000, 20, 100, 1024, 4
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    vecs = distance.normalize(torch.randn((n, M, d), generator=gen, device=cuda)).to(torch.bfloat16)
+    tab = pack_rows(vecs, "flat", ids=torch.randint(0, n, (n, M), generator=gen, device=cuda, dtype=torch.int32))
+    sel = torch.randint(0, n, (B, E), generator=gen, device=cuda, dtype=torch.int32)
+    q = distance.normalize(torch.randn((B, d), generator=gen, device=cuda)).to(torch.bfloat16)
+    gather_score_flat(tab, sel, q, M=M, d=d)
+    torch.cuda.synchronize()
+    trace.reset()
+    before = gather_score_flat.launches
+    with trace.span("test/k1", block=True):
+        for _ in range(20):
+            gather_score_flat(tab, sel, q, M=M, d=d)
+    assert gather_score_flat.launches == before + 20
+    got = trace.summary()["test/k1"]
+    assert got["count"] == 1 and got["total_s"] > 0
+    trace.reset()
+
+
+def test_tiled_cache_fed_group_build_on_card(cuda):
+    """Four gloo ranks on cuda:0 build one graph with the tiled cache (K2 in
+    every rank's beam): byte-equal layers on every rank, the one-device
+    tiled cache-fed build's layer counts and edge Jaccard > 0.95 over all
+    layers against it (clustered data, as ``bench.py``'s: on unclustered
+    Gaussian data the two warm-up schedules alone give 0.74 on the CPU)."""
+    import torch_rank_jobs as jobs
+    from granne_tpu_torch.ops.kernels import nbr_score
+
+    nbr_score.load_kernel()  # built here, before the ranks start
+    rng = np.random.default_rng(2)
+    centers = rng.standard_normal((60, 48)).astype(np.float32)
+    vecs = (centers[rng.integers(0, 60, 3000)] + 0.35 * rng.standard_normal((3000, 48))).astype(np.float32)
+    cfg = dict(num_neighbors=16, max_search=64, wave_size=128, neighbor_cache=True, neighbor_cache_layout="tiled")
+    ranks = g.run_ranks(jobs.dp_card_build_job, 4, vecs, cfg, backend="gloo", device="cuda", timeout=600)
+    for out in ranks:
+        assert out["k2"] > 0
+        assert all(np.array_equal(a, b) for a, b in zip(out["layers"], ranks[0]["layers"]))
+    one = g.build_layers(g.AngularVectors.from_raw(vecs, device=cuda), g.BuildConfig(**cfg)).as_numpy()
+    mine = ranks[0]["layers"]
+    assert [a.shape for a in mine] == [a.shape for a in one]
+    jaccard = _jaccard([r for a in mine for r in a], [r for a in one for r in a])
+    print(f"tiled cache-fed build, 4 gloo ranks on one card vs one device: edge Jaccard {jaccard}")
+    assert jaccard > 0.95
+
+
 # -- multi-device serving ----------------------------------------------------
 
 
@@ -745,4 +797,7 @@ def test_dryrun_nccl_world_a_gpu_a_rank(cuda):
         pytest.skip("needs two CUDA devices or more")
     K.load_kernel()  # built here, before the ranks start
     recalls = dryrun_multichip(world, timeout=600)
+    print(f"dryrun_multichip({world}) over NCCL: {recalls}")
+    jaccard = recalls.pop("dp_build_jaccard")
     assert min(recalls.values()) == recalls["single_device"] > 0.9
+    assert 0.95 < jaccard <= 1.0

@@ -77,7 +77,8 @@ def _reaches_jax_package(node: ast.AST) -> bool:
 def test_no_port_module_reaches_into_the_jax_package():
     paths = sorted(PORT.rglob("*.py"))
     scanned = {str(p.relative_to(PORT)) for p in paths}
-    assert {f"parallel/{m}.py" for m in ("mesh", "sharded", "sharded_ivf", "tiering", "dryrun")} <= scanned
+    assert {f"parallel/{m}.py" for m in ("mesh", "sharded", "sharded_ivf", "tiering", "dryrun", "dp_build")} <= scanned
+    assert {"utils/__init__.py", "utils/trace.py", "utils/progress.py"} <= scanned
     found = [
         f"{path.relative_to(PORT)}:{node.lineno}"
         for path in paths

@@ -169,14 +169,18 @@ def test_ranks_agree_and_import_no_jax(run):
 
 
 def test_dryrun_multichip_at_four_gloo_ranks():
-    """The port's dry run (``parallel/dryrun.py``, the serving steps of
-    ``__graft_entry__.dryrun_multichip``): every engine at least as good as
-    the single-device search."""
+    """The port's dry run (``parallel/dryrun.py``, the steps of
+    ``__graft_entry__.dryrun_multichip``): the data-parallel build's edge
+    Jaccard against the single-device build > 0.95, and every engine, the
+    data-parallel build's index included, at least as good as the
+    single-device search."""
     from granne_tpu_torch.parallel.dryrun import dryrun_multichip
 
     recalls = dryrun_multichip(S, "gloo", "cpu", timeout=300)
-    assert set(recalls) == {"single_device", "sharded_granne", "sharded_ivf", "tiered_sharded_ivf"}
+    jaccard = recalls.pop("dp_build_jaccard")
+    assert set(recalls) == {"single_device", "dp_build", "sharded_granne", "sharded_ivf", "tiered_sharded_ivf"}
     assert min(recalls.values()) == recalls["single_device"] > 0.9
+    assert 0.95 < jaccard <= 1.0
 
 
 def test_nccl_world_gets_a_gpu_a_rank_or_is_refused(monkeypatch):

@@ -127,3 +127,51 @@ def world_of_one_job(group, path, queries, nprobes):
     resident = IvfIndex.load(path, device=group.device)
     return {nprobe: (_np(sharded.search_batch(queries, 10, nprobe=nprobe)),
                      _np(resident.search_batch(queries, 10, nprobe=nprobe))) for nprobe in nprobes}
+
+
+def dp_build_job(group, vecs, cases, resume_at, recall_rows):
+    """The data-parallel build (``build_layers(..., group=group)``) of ``vecs``
+    at each config of ``cases`` ({name: BuildConfig keywords}), in one rank
+    process one after the other.  Also: the first case resumed from a build
+    of ``resume_at`` elements ("resumed", with the partial build's counts),
+    the first case's self-recall@1 over ``recall_rows`` rows, the refusal of
+    elements of another length on every rank but rank 0, and, on rank 0
+    after every collective, the one-device builds of the first case, whole
+    and resumed."""
+    from granne_tpu_torch import Granne, LayerStack, build_layers
+
+    elements = AngularVectors.from_raw(vecs, device=group.device)
+    out = {"modules": foreign_modules(), "layers": {}}
+    for name, cfg in cases.items():
+        out["layers"][name] = build_layers(elements, BuildConfig(**cfg), group=group).as_numpy()
+    first = BuildConfig(**next(iter(cases.values())))
+    partial = build_layers(elements, first, num_elements=resume_at, group=group)
+    out["partial_counts"] = partial.counts
+    out["layers"]["resumed"] = build_layers(elements, first, state=partial, group=group).as_numpy()
+    built = LayerStack.from_numpy(next(iter(out["layers"].values())), device=group.device)
+    ids, _ = Granne(layers=built, elements=elements).search_batch(
+        vecs[:recall_rows], max_search=first.max_search, num_neighbors=1)
+    out["self_recall"] = float(np.mean(ids[:, 0].cpu().numpy() == np.arange(recall_rows)))
+    other = AngularVectors.from_raw(vecs[: len(vecs) - min(group.rank, 1)], device=group.device)
+    try:
+        build_layers(other, first, group=group)
+        out["mismatch"] = None
+    except ValueError as e:
+        out["mismatch"] = str(e)
+    if group.rank == 0:
+        out["single"] = build_layers(elements, first).as_numpy()
+        partial = build_layers(elements, first, num_elements=resume_at)
+        out["single_resumed"] = build_layers(elements, first, state=partial).as_numpy()
+    return out
+
+
+def dp_card_build_job(group, vecs, cfg):
+    """A data-parallel build of ``vecs`` at ``cfg`` (BuildConfig keywords)
+    on the rank's device: its layers and this rank's launches of K1 and K2."""
+    from granne_tpu_torch import build_layers
+    from granne_tpu_torch.ops.kernels.nbr_score import gather_score, gather_score_flat
+
+    gather_score.launches = gather_score_flat.launches = 0
+    elements = AngularVectors.from_raw(vecs, device=group.device)
+    layers = build_layers(elements, BuildConfig(**cfg), group=group).as_numpy()
+    return {"layers": layers, "k1": gather_score_flat.launches, "k2": gather_score.launches}
