@@ -1,0 +1,15 @@
+"""Device milliseconds of the grouping (``index/ivf.py::search_probed``:
+``slot_groups``, the slot bookkeeping and the bf16 query gather) per 1,000
+queries answered: the ``ivf/group`` span's ``device_s``
+(``granne_tpu_torch/utils/trace.py``: CUDA events on the stream at its entry
+and exit, so idle inside the span counts).  Nothing where the program has no
+such span or did not time it on the device."""
+
+SPAN = "ivf/group"
+
+
+def read(m):
+    device_s = m.spans.get(SPAN, {}).get("device_s")
+    if device_s is None or not m.counts.get("queries"):
+        return None
+    return 1e3 * device_s / (m.counts["queries"] / 1000.0)

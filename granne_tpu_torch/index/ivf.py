@@ -13,6 +13,12 @@ Elements are permuted cluster by cluster into a padded dense tensor
                                                       K5 with ``fused_topk``)
     4. merge the per-block candidates into each query's top-k
 
+Steps 1-2, 3's grouping, 3's scoring and 4 run in the ``utils.trace``
+spans ``ivf/probe``, ``ivf/group``, ``ivf/score`` and ``ivf/merge``, and
+``IvfIndex.search_batch`` in ``ivf/search``; while a profiler records, the
+grouping counts the slots scored (``ivf/slots``) and the distinct blocks
+among them (``ivf/blocks``).
+
 A cluster larger than L spans several physical blocks, each with a copy of
 the cluster's centroid row, so the coarse probe reaches every sub-block of
 a near cluster and no element leaves its true cluster.  Exact within the
@@ -33,6 +39,7 @@ from ..ops import kmeans
 from ..ops.kernels import ivf_score
 from ..ops.segment import group_pairs
 from ..ops.topk import top_k
+from ..utils import trace
 from . import io as gio
 
 IVF_MAGIC = b"granne-tpu-ivf"
@@ -310,18 +317,19 @@ class IvfIndex:
         ``grouped=False`` gathers each query's blocks (plain PyTorch, in
         chunks of ``query_chunk`` queries).
         """
-        q = D.normalize(D.as_f32(queries, self.device))
-        if grouped:
-            num_slots = slot_count(self.k, q.shape[0], nprobe, group_cap)
-            return _ivf_search_grouped(
+        with trace.span("ivf/search"):
+            q = D.normalize(D.as_f32(queries, self.device))
+            if grouped:
+                num_slots = slot_count(self.k, q.shape[0], nprobe, group_cap)
+                return _ivf_search_grouped(
+                    self.centroids, self.blocks, self.block_ids, self.block_scales, q,
+                    nprobe=nprobe, k_out=num_neighbors, group_cap=group_cap, num_slots=num_slots,
+                    use_pallas_topk=fused_topk, slot_group=slot_group,
+                )
+            return _ivf_search(
                 self.centroids, self.blocks, self.block_ids, self.block_scales, q,
-                nprobe=nprobe, k_out=num_neighbors, group_cap=group_cap, num_slots=num_slots,
-                use_pallas_topk=fused_topk, slot_group=slot_group,
+                nprobe=nprobe, k_out=num_neighbors, query_chunk=query_chunk,
             )
-        return _ivf_search(
-            self.centroids, self.blocks, self.block_ids, self.block_scales, q,
-            nprobe=nprobe, k_out=num_neighbors, query_chunk=query_chunk,
-        )
 
 
 def read_metadata(path) -> dict:
@@ -380,10 +388,11 @@ def _probe(q, centroids, nprobe, centroid_valid=None):
     """Coarse scores -> [B, nprobe] probed blocks, ties to the lower block.
     ``centroid_valid`` (bool[k]) keeps padding blocks out: their zero
     centroids score 0 and would win probes over real blocks scoring below 0."""
-    cs = q @ centroids.to(torch.float32).T
-    if centroid_valid is not None:
-        cs = torch.where(centroid_valid[None, :], cs, -torch.inf)
-    return top_k(cs, nprobe)[1]
+    with trace.span("ivf/probe"):
+        cs = q @ centroids.to(torch.float32).T
+        if centroid_valid is not None:
+            cs = torch.where(centroid_valid[None, :], cs, -torch.inf)
+        return top_k(cs, nprobe)[1]
 
 
 def _ivf_search_grouped(
@@ -416,47 +425,60 @@ def search_probed(
     S = num_slots
     P = B * nprobe
     # per-slot block + query group; an unused slot is scored and masked below
-    safe_keys, qg, slot_pairs, item_slot, item_pos, sorted_pairs = slot_groups(
-        q, probes, blocks, group_cap=group_cap, num_slots=S
-    )
-    lin = torch.where(item_slot >= 0, item_slot * group_cap + item_pos, 0).long()
-    dropped = (item_slot < 0)[:, None]
-    order = sorted_pairs.long()
+    with trace.span("ivf/group"):
+        safe_keys, qg, slot_pairs, item_slot, item_pos, sorted_pairs = slot_groups(
+            q, probes, blocks, group_cap=group_cap, num_slots=S
+        )
+        lin = torch.where(item_slot >= 0, item_slot * group_cap + item_pos, 0).long()
+        dropped = (item_slot < 0)[:, None]
+        order = sorted_pairs.long()
+        if trace.recording():
+            trace.count("ivf/slots", S)
+            trace.count("ivf/blocks", _blocks_scored(safe_keys, slot_pairs))
 
-    if use_pallas_topk:
-        # fused score + per-slot top-k: the [S, cap, L] scores stay on chip,
-        # and the merge shrinks from width L to width k_out; the union of
-        # per-slot top-k_out holds the global top-k_out, so it stays exact
-        vals, vids = ivf_score.ivf_score_topk(blocks, block_ids, block_scales, safe_keys, qg, k_out=k_out)
-        occupied = (slot_pairs >= 0)[:, :, None]
-        vals = torch.where(occupied, vals, -torch.inf)
-        vids = torch.where(occupied, vids, -1)
-        Kp = vals.shape[2]
-        rows = torch.where(dropped, -torch.inf, vals.reshape(S * group_cap, Kp)[lin])
-        id_rows = torch.where(dropped, -1, vids.reshape(S * group_cap, Kp)[lin])
-        width = Kp
-    else:
-        if slot_group == 1:
-            scores = ivf_score.ivf_score_slots(blocks, safe_keys, qg)
+    with trace.span("ivf/score"):
+        if use_pallas_topk:
+            # fused score + per-slot top-k: the [S, cap, L] scores stay on chip,
+            # and the merge shrinks from width L to width k_out; the union of
+            # per-slot top-k_out holds the global top-k_out, so it stays exact
+            vals, vids = ivf_score.ivf_score_topk(blocks, block_ids, block_scales, safe_keys, qg, k_out=k_out)
+            occupied = (slot_pairs >= 0)[:, :, None]
+            vals = torch.where(occupied, vals, -torch.inf)
+            vids = torch.where(occupied, vids, -1)
+            Kp = vals.shape[2]
+            rows = torch.where(dropped, -torch.inf, vals.reshape(S * group_cap, Kp)[lin])
+            id_rows = torch.where(dropped, -1, vids.reshape(S * group_cap, Kp)[lin])
+            width = Kp
         else:
-            scores = ivf_score.ivf_score_slots_grouped(blocks, safe_keys, qg, group=slot_group)
-        keys = safe_keys.long()
-        ids_g = block_ids[keys]  # [S, L]
-        scores = scores * block_scales[keys][:, None, :]
-        valid = (slot_pairs >= 0)[:, :, None] & (ids_g >= 0)[:, None, :]
-        scores = torch.where(valid, scores, -torch.inf)
-        # each (slot, pos) score row back to its original pair
-        rows = torch.where(dropped, -torch.inf, scores.reshape(S * group_cap, L)[lin])
-        id_rows = torch.where(dropped, -1, ids_g[torch.clamp_min(item_slot, 0).long()])
-        width = L
+            if slot_group == 1:
+                scores = ivf_score.ivf_score_slots(blocks, safe_keys, qg)
+            else:
+                scores = ivf_score.ivf_score_slots_grouped(blocks, safe_keys, qg, group=slot_group)
+            keys = safe_keys.long()
+            ids_g = block_ids[keys]  # [S, L]
+            scores = scores * block_scales[keys][:, None, :]
+            valid = (slot_pairs >= 0)[:, :, None] & (ids_g >= 0)[:, None, :]
+            scores = torch.where(valid, scores, -torch.inf)
+            # each (slot, pos) score row back to its original pair
+            rows = torch.where(dropped, -torch.inf, scores.reshape(S * group_cap, L)[lin])
+            id_rows = torch.where(dropped, -1, ids_g[torch.clamp_min(item_slot, 0).long()])
+            width = L
 
-    out_scores = torch.full((P, width), -torch.inf, dtype=torch.float32, device=q.device)
-    out_ids = torch.full((P, width), -1, dtype=torch.int32, device=q.device)
-    out_scores[order] = rows  # sorted_pairs is a permutation of the pairs
-    out_ids[order] = id_rows
-    v, pos = top_k(out_scores.reshape(B, nprobe * width), k_out)
-    ids = torch.gather(out_ids.reshape(B, nprobe * width), 1, pos)
-    return ids, torch.clamp_min(1.0 - v, 0.0)
+    with trace.span("ivf/merge"):
+        out_scores = torch.full((P, width), -torch.inf, dtype=torch.float32, device=q.device)
+        out_ids = torch.full((P, width), -1, dtype=torch.int32, device=q.device)
+        out_scores[order] = rows  # sorted_pairs is a permutation of the pairs
+        out_ids[order] = id_rows
+        v, pos = top_k(out_scores.reshape(B, nprobe * width), k_out)
+        ids = torch.gather(out_ids.reshape(B, nprobe * width), 1, pos)
+        return ids, torch.clamp_min(1.0 - v, 0.0)
+
+
+def _blocks_scored(keys, slot_pairs):
+    """Distinct blocks among the used slots (0-d tensor, no sync): a used
+    slot holds a query in its first place, and equal keys come in runs."""
+    prev = torch.cat([keys.new_full((1,), -1), keys[:-1]])
+    return ((slot_pairs[:, 0] >= 0) & (keys != prev)).sum()
 
 
 def _ivf_search(centroids, blocks, block_ids, block_scales, q, *, nprobe, k_out, query_chunk):

@@ -4,7 +4,7 @@ elements on the card (exact integer dots, K1 on int8-provenance tables,
 the cache-fed int8 build, the element file), reorder on the card, the
 online builder's threads on one card, a world of one rank through NCCL,
 the data-parallel build of four gloo ranks on one card, and trace spans
-that wait for the card.
+that wait for the card or time the IVF search's stages on it.
 
 Needs an NVIDIA GPU and nvcc; every test skips elsewhere.  This file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -736,6 +736,55 @@ def test_trace_span_blocks_on_k1_calls(cuda):
     assert gather_score_flat.launches == before + 20
     got = trace.summary()["test/k1"]
     assert got["count"] == 1 and got["total_s"] > 0
+    trace.reset()
+
+
+def test_ivf_spans_time_the_device(cuda, monkeypatch):
+    """Under a profiler every ``ivf/*`` span of a K4 search gets a device
+    time: the four stages' sum within ``ivf/search``'s, ``ivf/score``'s at
+    least ``slot_score_kernel``'s own in the same profile.  Pairs still
+    pending when ``summary()`` is called are resolved there, and pairs
+    resolved early (past the drain mark) are not lost; ``count`` adds a
+    device tensor without a sync."""
+    from granne_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(5)
+    centers = rng.standard_normal((64, 100)).astype(np.float32)
+    x = (centers[rng.integers(0, 64, 60_000)] + 0.35 * rng.standard_normal((60_000, 100))).astype(np.float32)
+    index = g.IvfIndex.build(x, n_clusters=200, kmeans_iters=4, cluster_cap=256, device="cuda")
+    q = torch.as_tensor(x[:4000], device=cuda)
+    index.search_batch(q, 10, nprobe=8)
+    torch.cuda.synchronize()
+    stages = ["ivf/probe", "ivf/group", "ivf/score", "ivf/merge"]
+
+    trace.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        index.search_batch(q, 10, nprobe=8)
+    pending = len(trace._pending)
+    got = trace.summary()
+    assert pending == 5 and not trace._pending and sum(map(len, trace._free.values())) >= 2 * pending
+    assert all(got[name]["device_s"] > 0 and got[name]["count"] == 1 for name in ["ivf/search", *stages])
+    assert sum(got[name]["device_s"] for name in stages) <= got["ivf/search"]["device_s"]
+    kernel_s = sum(e.end_ns() - e.start_ns() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() != torch.autograd.DeviceType.CPU and "slot_score_kernel" in e.name()) / 1e9
+    assert 0 < kernel_s <= got["ivf/score"]["device_s"]
+    assert got["ivf/slots"]["total"] > got["ivf/blocks"]["total"] > 0
+
+    trace.reset()
+    monkeypatch.setattr(trace, "_DRAIN_AT", 0)
+    with torch.profiler.profile(activities=acts):
+        for _ in range(3):
+            index.search_batch(q, 10, nprobe=8)
+            torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            trace.count("test/on_card", (q[:, 0] > 0).sum())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    got = trace.summary()
+    assert all(got[name]["count"] == 3 and got[name]["device_s"] > 0 for name in ["ivf/search", *stages])
+    assert got["test/on_card"]["total"] == int((q[:, 0] > 0).sum())
     trace.reset()
 
 

@@ -119,3 +119,91 @@ def test_append_matches_jax(rng):
                            want.blocks.view(torch.int16) if dtype == "bfloat16" else want.blocks)
     with pytest.raises(ValueError, match="dimension mismatch"):
         ta.append(np.ones((2, 5), np.float32))
+
+
+# -- spans and counters -----------------------------------------------------
+
+STAGES = ["ivf/probe", "ivf/group", "ivf/score", "ivf/merge"]
+ROUTES = {"k4": {}, "k3": {"slot_group": 1}, "k5": {"fused_topk": True}}
+
+
+def _cpu_profile():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_search_spans_nest_in_order_and_count_slots_and_blocks(rng, route):
+    """Under a profiler one grouped search opens each ``ivf/*`` span once, as
+    user annotations, the four stages inside ``ivf/search`` in the order
+    probe, group, score, merge; ``ivf/slots`` is ``slot_count``'s and
+    ``ivf/blocks`` the distinct probed blocks (some hot blocks spill into
+    further slots at a group cap of 4).  The answers are bit-identical with
+    and without the profiler, and off it nothing is counted."""
+    from granne_tpu_torch.ops import distance
+    from granne_tpu_torch.utils import trace
+
+    x = _clustered(rng, 3000, 16, c=12)
+    index = IvfIndex.build(x, n_clusters=48, kmeans_iters=3, cluster_cap=64, device="cpu")
+    q, nprobe, cap = x[:40], 3, 4
+    kw = dict(nprobe=nprobe, group_cap=cap, **ROUTES[route])
+    trace.reset()
+    plain = index.search_batch(q, 10, **kw)
+    assert all("device_s" not in v and "total" not in v for v in trace.summary().values())
+    trace.reset()
+    with _cpu_profile() as prof:
+        assert trace.recording()
+        traced = index.search_batch(q, 10, **kw)
+    assert not trace.recording()
+    assert torch.equal(plain[0], traced[0]) and torch.equal(plain[1], traced[1])
+
+    got = trace.summary()
+    probes = ivf._probe(distance.normalize(torch.as_tensor(q)), index.centroids, nprobe)
+    blocks = torch.unique(probes).numel()
+    slots = ivf.slot_count(index.k, len(q), nprobe, cap)
+    assert got.pop("ivf/slots") == {"total": slots} and got.pop("ivf/blocks") == {"total": blocks}
+    assert blocks < index.k and slots > blocks
+    assert sorted(got) == sorted(["ivf/search", *STAGES])
+    assert all(v["count"] == 1 and "device_s" not in v for v in got.values())
+
+    spans = {e.name(): (e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+             if e.name().startswith("ivf/") and e.is_user_annotation()}
+    assert sorted(spans) == sorted(got)
+    lo, hi = spans["ivf/search"]
+    edges = [lo] + [t for name in STAGES for t in spans[name]] + [hi]
+    assert edges == sorted(edges)
+    trace.reset()
+
+
+def _reader(name):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "benchmark" / "metrics" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"reader_{name.replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+def test_benchmark_readers_of_the_ivf_spans():
+    """The six readers of the ``ivf/*`` spans and counters: milliseconds a
+    1,000 queries from ``device_s``, slots over blocks, and the window's
+    share outside the search calls; nothing from a summary without them
+    (a program without the spans, or a run off the card)."""
+    from types import SimpleNamespace
+
+    spans = {name: {"total_s": 1.0, "count": 3, "device_s": s}
+             for name, s in zip(STAGES + ["ivf/search"], [0.5, 0.1, 0.2, 0.3, 1.5])}
+    spans.update({"ivf/slots": {"total": 900}, "ivf/blocks": {"total": 600}})
+    m = SimpleNamespace(trace=SimpleNamespace(window_s=2.0), spans=spans, counts={"queries": 20_000})
+    for name, want in zip(STAGES, [25.0, 5.0, 10.0, 15.0]):
+        assert _reader(f"{name[4:]}_ms_per_kq.ivf_serve")(m) == pytest.approx(want)
+    assert _reader("slot_reads_per_block.ivf_serve")(m) == pytest.approx(1.5)
+    assert _reader("between_calls_idle_pct.serve")(m) == pytest.approx(25.0)
+    host_only = {name: {"total_s": 1.0, "count": 3} for name in STAGES + ["ivf/search"]}
+    for spans in ({}, host_only):
+        bare = SimpleNamespace(trace=SimpleNamespace(window_s=2.0), spans=spans, counts={"queries": 20_000})
+        for name in ["probe", "group", "score", "merge"]:
+            assert _reader(f"{name}_ms_per_kq.ivf_serve")(bare) is None
+        assert _reader("slot_reads_per_block.ivf_serve")(bare) is None
+        assert _reader("between_calls_idle_pct.serve")(bare) is None

@@ -110,3 +110,46 @@ def test_show_progress_build_reports_on_stderr_and_spans_every_wave(capsys):
     assert spans["build/insert_wave"]["count"] == inserts
     assert spans["build/reinsert_wave"]["count"] == reinserts
     trace.reset()
+
+
+def test_counters_and_device_time_only_while_recording():
+    """Off a profiler ``count`` leaves nothing and a span has no
+    ``device_s``; under one (CPU here: no CUDA events) ints and tensors add
+    up, ``summary()`` lists each counter as ``{"total": n}`` after the
+    spans, and ``reset()`` clears counters too."""
+    trace.reset()
+    assert not trace.recording()
+    trace.count("test/c", 3)
+    with trace.span("test/s"):
+        pass
+    assert trace.summary() == {"test/s": {"total_s": pytest.approx(0, abs=1e-3), "count": 1}}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert trace.recording()
+        with trace.span("test/s"):
+            trace.count("test/c", 3)
+            trace.count("test/c", torch.tensor(4))
+            trace.count("test/d", torch.tensor([1, 0, 1]).sum())
+    got = trace.summary()
+    assert list(got) == ["test/s", "test/c", "test/d"]
+    assert got["test/c"] == {"total": 7} and got["test/d"] == {"total": 2}
+    assert set(got["test/s"]) == {"total_s", "count"} and got["test/s"]["count"] == 2
+    trace.reset()
+    assert trace.summary() == {}
+
+
+def test_count_adds_a_tensor_without_reading_it(monkeypatch):
+    """A tensor given to ``count`` is added where it lives: nothing reads
+    its value on the host (which would wait for its device) until
+    ``summary()``."""
+    def read(*_):
+        raise AssertionError("count read a tensor's value on the host")
+
+    trace.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with monkeypatch.context() as mp:
+            for name in ("item", "tolist", "__int__", "__index__", "__bool__", "__float__", "cpu", "numpy"):
+                mp.setattr(torch.Tensor, name, read)
+            for v in (torch.tensor(5), 2, torch.tensor(6)):
+                trace.count("test/t", v)
+    assert trace.summary() == {"test/t": {"total": 13}}
+    trace.reset()
