@@ -11,8 +11,8 @@ In the order it runs:
 1. Builds every CUDA kernel of the main paths from ``granne_tpu_torch/csrc``
    (and the port's adjacency codec, ``csrc/codec.cpp``, with g++), all
    compilers started together, and prints nvcc's ``-Xptxas -v`` report of
-   ``nbr_score.cu`` and ``ivf_score.cu`` (registers, shared memory, spills
-   of each kernel).
+   ``nbr_score.cu``, ``ivf_score.cu`` and ``row_topk.cu`` (registers,
+   shared memory, spills of each kernel).
 2. K1 (``gather_score_flat``) against its plain PyTorch version on the card
    at the serve shape n=200,000, M=20, d=100, B=1024, E in {1, 4}: ids
    exactly equal, dots within 1e-4 (both sum exact bf16 products in f32 and
@@ -30,7 +30,12 @@ In the order it runs:
    1e-4 on the cosine scale, K5 values within 1e-4 and ids equal except
    at near-ties (values within 1e-4 of a neighbour in the plain ranking,
    the first value past the k_out-th included); exactly tied rows rank the lower column first, within a
-   row tile and across the big block's row tiles.
+   row tile and across the big block's row tiles.  Then ``row_top_k``
+   against its plain version ``ops/topk.py::top_k`` at the IVF cell's two
+   top-k shapes (the probe's [10,000 x 6,467] at k 8, the merge's
+   [10,000 x 2,048] at k 10, random scores): values and columns equal, and
+   timed beside its bound, the plain sort and ``torch.topk``
+   (``library_ms``, which the port never calls).
 5. The HNSW main path through the public API: ``GranneBuilder.append`` ->
    ``build`` -> ``save_index`` (compressed) / ``save_elements`` ->
    ``load_granne`` -> bf16 copy + flat neighbor cache -> ``search_batch``,
@@ -73,7 +78,8 @@ In the order it runs:
    must agree with the K4 route (id overlap >= 0.999), each timed.  Then
    bf16 brute force, and an int8 index from ``build_ivf_i8_chunked`` (four
    50,000-row chunks) whose recall at nprobe 16 is at most 0.01 below the
-   int8 brute-force recall.  The path must have launched K3, K4 and K5.
+   int8 brute-force recall.  The path must have launched K3, K4, K5 and
+   ``row_top_k`` (the probe's and the merge's top-k).
    At nprobe 4, one warm ``search_batch`` per route (K4, fused K5) under
    ``torch.profiler``: host wall, device time, busy share, device ops and
    the five largest.  Then K3/K4/K5 timed again on the path's own slots
@@ -210,9 +216,10 @@ wrapper called it, after two ``torch.full`` fills of its outputs:
 ``baseline_with_fills``).  A baseline that fails to build fails the run.
 Each kernel's record carries the bound for its timed work (the larger of
 bytes over 3.35 TB/s and bf16 operations over 989 TFLOP/s, the H100 SXM
-peaks) and ``library_ms`` null: no single PyTorch call gathers rows by id
-and contracts them.  Any failed phase exits non-zero.  The last two lines
-of stdout are the kernel table and ``{"ok": true, "device": {...}}``.
+peaks) and ``library_ms``: null for K1-K5 (no single PyTorch call gathers
+rows by id and contracts them), ``torch.topk``'s time for ``row_top_k``.
+Any failed phase exits non-zero.  The last two lines of stdout are the
+kernel table and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -264,6 +271,9 @@ IVF_CASES = (
 )
 IVF_SLOT_CAP, IVF_GROUP = 32, 8
 PATH_NPROBE = 4  # the IVF path's slots for K3-K5 timed on its own keys (the first nprobe reaching 0.95)
+# row_top_k: the IVF cell's probe (10,000 queries x 6,467 blocks, nprobe 8) and merge (nprobe 8 x L 256, k 10)
+ROW_TOPK_SHAPES = (("probe", 10_000, 6467, 8), ("merge", 10_000, 2048, 10))
+ROW_TOPK_INPUTS = 2  # score matrices timed in turn (each past the 50 MB L2)
 HOST_QUERIES = 500  # bench.py's single-core baseline queries (bench.py:574-591)
 # the read-write phase: base, rows a thread, rows a call.  The base is cut
 # from 50,000: every flush re-inserts and re-prunes the whole bottom layer
@@ -684,6 +694,42 @@ def ivf_kernel_phase(torch, base_lib):
     return recs
 
 
+def row_topk_phase(torch) -> dict:
+    """``row_top_k`` vs its plain version (``ops/topk.py::top_k``) at
+    ROW_TOPK_SHAPES: values and columns equal, then the kernel and the plain
+    sort timed in turns (``timed_pair``) and ``torch.topk`` (the library
+    yardstick, which the port never calls) timed the same two ways, each
+    beside the bound (each score read once, k values and columns written).
+    Returns {shape name: record}."""
+    from granne_tpu_torch.ops.kernels.row_topk import row_top_k
+    from granne_tpu_torch.ops.topk import top_k
+
+    def library(x, k):
+        return torch.topk(x, k, dim=1)
+
+    out = {}
+    for what, R, C, k in ROW_TOPK_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(C)
+        xs = [torch.randn((R, C), generator=gen, device="cuda") for _ in range(ROW_TOPK_INPUTS)]
+        for x in xs:
+            (v, i), (pv, pi) = row_top_k(x, k), top_k(x, k)
+            if not (torch.equal(i, pi) and torch.equal(v, pv)):
+                rows = int((i != pi).any(1).sum())
+                fail(f"row_top_k differs from the plain sort at the {what} shape [{R} x {C}] k {k}: {rows} rows")
+        args = [(xs[n % ROW_TOPK_INPUTS], k) for n in range(IVF_TIMED)]
+        rec = timed_pair(torch, row_top_k, top_k, args)
+        cuda_ms(library, args[:3], torch)
+        graph = capture(torch, library, args)
+        rec.update(library_ms=replay_ms(torch, graph, len(args)), library_eager_ms=cuda_ms(library, args, torch),
+                   **bound(R * C * 4 + R * k * 12, 0), shape=[R, C, k])
+        rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+        del graph, xs
+        log(f"row_top_k {what} [{R} x {C}] k={k}: {rec}")
+        out[what] = rec
+    torch.cuda.empty_cache()
+    return out
+
+
 def batched(index, queries):
     """``search(lo, ef)``: ``index.search_batch`` on ``queries[lo : lo + SERVE_B]``."""
     return lambda lo, ef: index.search_batch(queries[lo : lo + SERVE_B], max_search=ef, num_neighbors=K)
@@ -701,8 +747,10 @@ def search_all(torch, search, ef):
 def reset_launch_counts():
     from granne_tpu_torch.ops.kernels import ivf_score as KS
     from granne_tpu_torch.ops.kernels.nbr_score import gather_score, gather_score_flat
+    from granne_tpu_torch.ops.kernels.row_topk import row_top_k
 
-    for fn in (gather_score_flat, gather_score, KS.ivf_score_slots, KS.ivf_score_slots_grouped, KS.ivf_score_topk):
+    for fn in (gather_score_flat, gather_score, KS.ivf_score_slots, KS.ivf_score_slots_grouped, KS.ivf_score_topk,
+               row_top_k):
         fn.launches = 0
 
 
@@ -1029,6 +1077,7 @@ def ivf_path(torch, g, vecs, queries, gt):
     from granne_tpu_torch.index.ivf_big import build_ivf_i8_chunked
     from granne_tpu_torch.ops import distance
     from granne_tpu_torch.ops.kernels import ivf_score as KS
+    from granne_tpu_torch.ops.kernels.row_topk import row_top_k
 
     reset_launch_counts()  # count this path's launches only
     t = time.perf_counter()
@@ -1100,7 +1149,8 @@ def ivf_path(torch, g, vecs, queries, gt):
         if r_i8 < r_b8 - I8_SLACK:
             fail(f"int8 IVF recall {r_i8} is more than {I8_SLACK} below int8 brute force {r_b8}")
 
-    launches = {f.__name__: f.launches for f in (KS.ivf_score_slots, KS.ivf_score_slots_grouped, KS.ivf_score_topk)}
+    launches = {f.__name__: f.launches
+                for f in (KS.ivf_score_slots, KS.ivf_score_slots_grouped, KS.ivf_score_topk, row_top_k)}
     log(f"IVF kernel launches in the IVF path: {launches}")
     for name, count in launches.items():
         if count <= 0:
@@ -2115,7 +2165,7 @@ def main() -> None:
     from granne_tpu_torch.native import codec_source
     from granne_tpu_torch.native import get_lib as load_codec
     from granne_tpu_torch.ops import distance
-    from granne_tpu_torch.ops.kernels import build, ivf_score, nbr_score
+    from granne_tpu_torch.ops.kernels import build, ivf_score, nbr_score, row_topk
 
     distance.full_f32()
     smi = subprocess.run(
@@ -2130,6 +2180,7 @@ def main() -> None:
         return time.perf_counter() - t, lib
 
     builds = {"nbr_score.cu (nvcc)": nbr_score.load_kernel, "ivf_score.cu (nvcc)": ivf_score.load_kernel,
+              "row_topk.cu (nvcc)": row_topk.load_kernel,
               f"{os.path.relpath(codec_source(), REPO)} (g++)": load_codec}
     base_keys = {}
     for kind, path, signatures in (("nbr_score", opts.baseline_nbr_score, nbr_score.SIGNATURES),
@@ -2145,7 +2196,8 @@ def main() -> None:
         log("build (in parallel): " + ", ".join(f"{name} {f.result()[0]} s" for name, f in futures.items()))
     base_lib = futures[base_keys["nbr_score"]].result()[1] if "nbr_score" in base_keys else None
     ivf_base_lib = futures[base_keys["ivf_score"]].result()[1] if "ivf_score" in base_keys else None
-    for name in ("libnbr_score.so", "libnbr_score_baseline.so", "libivf_score.so", "libivf_score_baseline.so"):
+    for name in ("libnbr_score.so", "libnbr_score_baseline.so", "libivf_score.so", "libivf_score_baseline.so",
+                 "librow_topk.so"):
         for line in build.BUILD_LOGS.get(name, "").splitlines():
             if "Used" in line or "spill" in line or "entry function" in line:
                 log(f"{name} {line.strip()}")
@@ -2162,6 +2214,8 @@ def main() -> None:
     no_jax("K2 phase")
     ivf_recs = ivf_kernel_phase(torch, ivf_base_lib)
     no_jax("K3/K4/K5 phase")
+    topk_recs = row_topk_phase(torch)
+    no_jax("row top-k phase")
     vecs, queries = bench_data()
     gt = exact_topk(torch, vecs, queries)
     launches, main_recalls, main_build_s = main_path(torch, g, vecs, queries, gt)
@@ -2223,6 +2277,14 @@ def main() -> None:
             **({"tiered_path_launches": tiered_launches} if name == "ivf_score_slots_grouped" else {}),
             **({"sharded_path_launches": sharded_launches[name]} if name in sharded_launches else {}),
         })
+    probe = topk_recs["probe"]
+    kernels.append({
+        "name": "row_top_k", "route": "cuda", "source": "granne_tpu_torch/csrc/row_topk.cu",
+        "replaces": None, "launches": ivf_launches["row_top_k"], "max_abs_err": 0.0,
+        **{key: probe[key] for key in ("device_ms", "eager_ms", "plain_ms", "plain_eager_ms", "bound_ms", "bound_by",
+                                       "library_ms", "shape")},
+        "ms": probe["device_ms"], "merge_shape": topk_recs["merge"],
+    })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ Elements are permuted cluster by cluster into a padded dense tensor
 [k, L, d] plus an id map [k, L] (-1 padding).  A search is:
 
     1. score queries against the k centroids        (one f32 matrix product)
-    2. pick the top-``nprobe`` blocks per query      (stable sort: ties probe
+    2. pick the top-``nprobe`` blocks per query      (``ranked``: ties probe
                                                       the lower block, as
                                                       ``lax.top_k`` does)
     3. group (query, block) pairs into slots and score every slot's block
@@ -17,7 +17,10 @@ Steps 1-2, 3's grouping, 3's scoring and 4 run in the ``utils.trace``
 spans ``ivf/probe``, ``ivf/group``, ``ivf/score`` and ``ivf/merge``, and
 ``IvfIndex.search_batch`` in ``ivf/search``; while a profiler records, the
 grouping counts the slots scored (``ivf/slots``) and the distinct blocks
-among them (``ivf/blocks``).
+among them (``ivf/blocks``).  The probe's, the merge's and the ungrouped
+search's top-k go through ``ranked``: the card's row top-k kernel for k up
+to ``K_MAX``, the whole-row stable sort past it, the rows of each counted
+(``topk/kernel_rows``, ``topk/sort_rows``) while a profiler records.
 
 A cluster larger than L spans several physical blocks, each with a copy of
 the cluster's centroid row, so the coarse probe reaches every sub-block of
@@ -37,6 +40,7 @@ import torch
 from ..ops import distance as D
 from ..ops import kmeans
 from ..ops.kernels import ivf_score
+from ..ops.kernels.row_topk import K_MAX, row_top_k
 from ..ops.segment import group_pairs
 from ..ops.topk import top_k
 from ..utils import trace
@@ -384,6 +388,19 @@ def slot_groups(q, probes, blocks, *, group_cap, num_slots):
     return safe_keys, qg, slot_pairs, item_slot, item_pos, sorted_pairs
 
 
+def ranked(scores, k: int):
+    """The ``k`` best of each row of ``scores`` (f32 [R, C]), best first, ties
+    to the lower column: (values, columns int64).  ``row_top_k`` (one read of
+    each row on the card) takes k <= min(C, K_MAX), the whole-row stable sort
+    (``ops/topk.py::top_k``) a wider k; the two give the same answers."""
+    rows, cols = scores.shape
+    if k <= min(cols, K_MAX):
+        trace.count("topk/kernel_rows", rows)
+        return row_top_k(scores, k)
+    trace.count("topk/sort_rows", rows)
+    return top_k(scores, k)
+
+
 def _probe(q, centroids, nprobe, centroid_valid=None):
     """Coarse scores -> [B, nprobe] probed blocks, ties to the lower block.
     ``centroid_valid`` (bool[k]) keeps padding blocks out: their zero
@@ -392,7 +409,7 @@ def _probe(q, centroids, nprobe, centroid_valid=None):
         cs = q @ centroids.to(torch.float32).T
         if centroid_valid is not None:
             cs = torch.where(centroid_valid[None, :], cs, -torch.inf)
-        return top_k(cs, nprobe)[1]
+        return ranked(cs, nprobe)[1]
 
 
 def _ivf_search_grouped(
@@ -469,7 +486,7 @@ def search_probed(
         out_ids = torch.full((P, width), -1, dtype=torch.int32, device=q.device)
         out_scores[order] = rows  # sorted_pairs is a permutation of the pairs
         out_ids[order] = id_rows
-        v, pos = top_k(out_scores.reshape(B, nprobe * width), k_out)
+        v, pos = ranked(out_scores.reshape(B, nprobe * width), k_out)
         ids = torch.gather(out_ids.reshape(B, nprobe * width), 1, pos)
         return ids, torch.clamp_min(1.0 - v, 0.0)
 
@@ -492,7 +509,7 @@ def _ivf_search(centroids, blocks, block_ids, block_scales, q, *, nprobe, k_out,
         dots = torch.einsum("qpld,qd->qpl", pb, qc.to(torch.bfloat16).to(torch.float32))
         dots = torch.where(pids >= 0, dots * block_scales[probes], -torch.inf)
         Qc = qc.shape[0]
-        v, pos = top_k(dots.reshape(Qc, -1), k_out)
+        v, pos = ranked(dots.reshape(Qc, -1), k_out)
         ids_out.append(torch.gather(pids.reshape(Qc, -1), 1, pos))
         d_out.append(torch.clamp_min(1.0 - v, 0.0))
     return torch.cat(ids_out), torch.cat(d_out)

@@ -20,6 +20,8 @@ import granne_tpu_torch as g
 from granne_tpu_torch.index.granne import Granne
 from granne_tpu_torch.ops import distance
 from granne_tpu_torch.ops.kernels import ivf_score as K
+from granne_tpu_torch.ops.kernels.row_topk import K_MAX, row_top_k
+from granne_tpu_torch.ops.topk import top_k
 from granne_tpu_torch.ops.kernels.nbr_score import (
     gather_score,
     gather_score_flat,
@@ -378,6 +380,109 @@ def test_ivf_search_on_card_matches_cpu(cuda):
         got = ids.cpu().numpy()
         overlap = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got, want)])
         assert overlap >= 0.99, (kw, overlap)
+
+
+# -- the row top-k ----------------------------------------------------------
+
+
+def _topk_rows(kind, R, C, seed):
+    """f32 [R, C] CPU rows of one ``kind``: scores on a coarse grid (many
+    exact ties), runs of one column repeated the way a split cluster repeats
+    its centroid row, -inf with fewer finite values than 32, NaN beside
+    -inf, and signed zeros."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.round(torch.randn((R, C), generator=gen) * 2) / 2 + 0.25
+    if kind == "split":
+        x = torch.randn((R, C // 3 + 1), generator=gen).repeat_interleave(3, dim=1)[:, :C].contiguous()
+    elif kind == "few_finite":
+        x[:] = -torch.inf
+        for r in range(R):
+            n = min(r % 5, C)
+            x[r, torch.randperm(C, generator=gen)[:n]] = torch.randint(-2, 3, (n,), generator=gen).float()
+    elif kind == "nan":
+        x[torch.rand((R, C), generator=gen) < 0.3] = torch.nan
+        x[torch.rand((R, C), generator=gen) < 0.3] = -torch.inf
+        x[: R // 2, : C - 3] = torch.nan
+    elif kind == "signed_zeros":
+        x[:, ::3] = -0.0
+        x[:, 1::4] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("kind", ["ties", "split", "few_finite", "nan", "signed_zeros"])
+def test_row_top_k_matches_plain(cuda, kind):
+    """The kernel's values and columns equal the plain version's on a CPU
+    copy bit for bit, at k in {1, 8, 10, 16, 32} over widths k, 33, 2,048,
+    6,467 (the probe's, not a multiple of 4) and 8,193."""
+    for C in (33, 2048, 6467, 8193, None):
+        for k in (1, 8, 10, 16, K_MAX):
+            width = C or k
+            x = _topk_rows(kind, 48, width, seed=width * 64 + k)
+            v, i = row_top_k(x.to(cuda), k)
+            want_v, want_i = top_k(x, k)
+            assert torch.equal(v.cpu().view(torch.int32), want_v.view(torch.int32)), (kind, width, k)
+            assert torch.equal(i.cpu(), want_i), (kind, width, k)
+
+
+def test_row_top_k_at_the_serve_shapes(cuda):
+    """The probe's [10,000 x 6,467] at k 8 and the merge's [10,000 x 2,048]
+    at k 10, random scores: positions equal to the sort's on every row."""
+    for R, C, k in ((10_000, 6467, 8), (10_000, 2048, 10)):
+        x = torch.randn((R, C), generator=torch.Generator().manual_seed(C))
+        v, i = row_top_k(x.to(cuda), k)
+        want_v, want_i = top_k(x, k)
+        assert torch.equal(i.cpu(), want_i) and torch.equal(v.cpu(), want_v)
+
+
+def test_row_top_k_launches_capture_in_a_cuda_graph(cuda):
+    """One launch a call; three launches captured in one CUDA graph replay
+    to the eager outputs and follow new scores copied into the captured
+    inputs."""
+    xs = [_topk_rows("ties", 300, 6467, seed=s).to(cuda) for s in range(3)]
+    before = row_top_k.launches
+    eager = [row_top_k(x, 8) for x in xs]
+    assert row_top_k.launches == before + 3
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [row_top_k(x, 8) for x in xs]
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(captured, eager):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for s, x in enumerate(xs):
+        x.copy_(_topk_rows("split", 300, 6467, seed=10 + s).to(cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, x in zip(captured, xs):
+        want = top_k(x.cpu(), 8)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert row_top_k.launches == before + 6
+
+
+def test_ivf_search_on_card_launches_row_top_k_over_split_clusters(cuda, monkeypatch):
+    """``IvfIndex.search_batch`` on the card, over clusters larger than L
+    (each block of a split cluster carries the cluster's centroid row, so
+    probe scores tie exactly): the probe and the merge launch ``row_top_k``,
+    and the ids and distances equal those of the whole-row sort's route."""
+    from granne_tpu_torch.index import ivf
+
+    rng = np.random.default_rng(3)
+    centers = rng.standard_normal((20, 64)).astype(np.float32)
+    x = (centers[rng.integers(0, 20, 20_000)] + 0.35 * rng.standard_normal((20_000, 64))).astype(np.float32)
+    index = g.IvfIndex.build(x, n_clusters=40, kmeans_iters=4, cluster_cap=128, device="cuda")
+    assert index.k > 80  # ~500 members a cluster: every cluster split
+    q = torch.as_tensor(x[:3000], device=cuda)
+    for kw in (dict(), dict(fused_topk=True), dict(grouped=False)):
+        before = row_top_k.launches
+        ids, dists = index.search_batch(q, 10, nprobe=12, **kw)
+        torch.cuda.synchronize()
+        launched = row_top_k.launches - before
+        assert launched == (2 if "grouped" not in kw else -(-3000 // 256) * 2), (kw, launched)
+        with monkeypatch.context() as m:
+            m.setattr(ivf, "row_top_k", top_k)
+            want_ids, want_d = index.search_batch(q, 10, nprobe=12, **kw)
+        assert row_top_k.launches == before + launched
+        assert torch.equal(ids, want_ids) and torch.equal(dists, want_d), kw
 
 
 # -- int8 elements ----------------------------------------------------------

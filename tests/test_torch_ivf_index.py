@@ -121,6 +121,77 @@ def test_append_matches_jax(rng):
         ta.append(np.ones((2, 5), np.float32))
 
 
+# -- the top-k route -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("k,cols,route", [(1, 40, "kernel"), (32, 40, "kernel"), (33, 40, "sort"), (8, 5, "sort")])
+def test_ranked_sends_narrow_k_to_the_row_kernel_and_wide_k_to_the_sort(rng, monkeypatch, k, cols, route):
+    """``ranked`` takes ``row_top_k`` for k <= min(C, K_MAX) and the whole-row
+    sort past that, with the same answers, and while a profiler records
+    counts the rows of each route."""
+    from granne_tpu_torch.ops.kernels import row_topk
+    from granne_tpu_torch.ops.topk import top_k
+    from granne_tpu_torch.utils import trace
+
+    calls = []
+    monkeypatch.setattr(ivf, "row_top_k", lambda s, kk: (calls.append("kernel"), row_topk.row_top_k(s, kk))[1])
+    monkeypatch.setattr(ivf, "top_k", lambda s, kk: (calls.append("sort"), top_k(s, kk))[1])
+    x = torch.as_tensor(np.round(rng.standard_normal((6, cols)) * 2).astype(np.float32))
+    trace.reset()
+    got = ivf.ranked(x, k)
+    assert calls == [route] and trace.summary() == {}
+    want = top_k(x, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with _cpu_profile():
+        ivf.ranked(x, k)
+    assert trace.summary() == {f"topk/{route}_rows": {"total": 6}}
+    trace.reset()
+
+
+def _exact_unit_rows(rng, n):
+    """Rows of 16 entries of +-1 times a power of two: unit rows of +-0.25
+    in either package, whose dots (bf16 or f32) are exact multiples of
+    1/16, so both packages score them bit for bit and tie often."""
+    return rng.choice([-1.0, 1.0], (n, 16)).astype(np.float32) * (2.0 ** rng.integers(-3, 4, (n, 1))).astype(np.float32)
+
+
+@pytest.mark.parametrize("route", ["k4", "k5", "ungrouped"])
+def test_search_over_split_clusters_equals_jax_probes_and_ids(rng, route):
+    """Clusters larger than L span several blocks, each with a copy of the
+    cluster's centroid row, so a query's centroid scores tie exactly (and
+    its element scores, all multiples of 1/16, tie often): the port probes
+    the same blocks as ``lax.top_k`` and returns JAX's ids and distances
+    exactly, on the grouped (K4 and K5 plain versions) and ungrouped routes."""
+    x = _exact_unit_rows(rng, 1500)
+    xn = x / np.linalg.norm(x, axis=1, keepdims=True)
+    cent = xn[rng.choice(1500, 6, replace=False)]
+    blocks, ids, pcent = ivf.layout_blocks(xn, cent, np.argmax(xn @ cent.T, axis=1), 6, 64)
+    assert len(pcent) >= 24  # ~250 members a cluster: every cluster split
+    t = IvfIndex._from_f32_blocks(blocks, ids, pcent, 1500, "bfloat16", torch.device("cpu"))
+    jargs = (jnp.asarray(pcent), jnp.asarray(blocks, jnp.bfloat16), jnp.asarray(ids), jnp.ones(ids.shape, jnp.float32))
+    q = _exact_unit_rows(np.random.default_rng(7), 96)
+    qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+    nprobe, k_out = 8, 10
+
+    probes = ivf._probe(torch.as_tensor(qn), t.centroids, nprobe)
+    jprobes = jax.lax.top_k(jnp.asarray(qn) @ jnp.asarray(pcent).T, nprobe)[1]
+    assert np.array_equal(probes.numpy(), np.asarray(jprobes))
+    cs = qn @ pcent.T
+    assert (cs[:, :, None] == cs[:, None, :]).sum() > 2 * cs.size  # ties beyond the diagonal
+
+    targs = (t.centroids, t.blocks, t.block_ids, t.block_scales, torch.as_tensor(qn))
+    if route == "ungrouped":
+        got = ivf._ivf_search(*targs, nprobe=nprobe, k_out=k_out, query_chunk=40)
+        want = jivf._ivf_search(*jargs, jnp.asarray(qn), nprobe=nprobe, k_out=k_out, query_chunk=40)
+    else:
+        S = ivf.slot_count(t.k, len(q), nprobe, 16)
+        kw = dict(nprobe=nprobe, k_out=k_out, group_cap=16, num_slots=S)
+        got = ivf._ivf_search_grouped(*targs, use_pallas_topk=route == "k5", **kw)
+        want = jivf._ivf_search_grouped(*jargs, jnp.asarray(qn), use_pallas_topk=route == "k5", **kw)
+    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
 # -- spans and counters -----------------------------------------------------
 
 STAGES = ["ivf/probe", "ivf/group", "ivf/score", "ivf/merge"]
@@ -161,6 +232,7 @@ def test_search_spans_nest_in_order_and_count_slots_and_blocks(rng, route):
     blocks = torch.unique(probes).numel()
     slots = ivf.slot_count(index.k, len(q), nprobe, cap)
     assert got.pop("ivf/slots") == {"total": slots} and got.pop("ivf/blocks") == {"total": blocks}
+    assert got.pop("topk/kernel_rows") == {"total": 2 * len(q)}  # the probe's rows and the merge's
     assert blocks < index.k and slots > blocks
     assert sorted(got) == sorted(["ivf/search", *STAGES])
     assert all(v["count"] == 1 and "device_s" not in v for v in got.values())

@@ -18,6 +18,7 @@ from granne_tpu_torch import AngularVectors
 from granne_tpu_torch.elements.base import supports_cache
 from granne_tpu_torch.index import heuristic
 from granne_tpu_torch.ops import distance, topk
+from granne_tpu_torch.ops.kernels.row_topk import K_MAX, row_top_k
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -114,6 +115,60 @@ def test_sort_and_merge_match_jax(rng):
     d, (ids,) = topk.merge_topk(_t(a), _t(b), (_t(a_ids),), (_t(b_ids),), 9)
     jd, (jids,) = jtopk.merge_topk(jnp.asarray(a), jnp.asarray(b), (jnp.asarray(a_ids),), (jnp.asarray(b_ids),), 9)
     assert np.array_equal(d.numpy(), np.asarray(jd)) and np.array_equal(ids.numpy(), np.asarray(jids))
+
+
+def tie_heavy_rows(rng, kind, R, C):
+    """f32 [R, C] rows of one ``kind``: scores on a coarse grid (many exact
+    ties), runs of one column repeated the way a split cluster repeats its
+    centroid row, -inf with fewer finite values than 32, NaN beside -inf,
+    and signed zeros."""
+    x = (np.round(rng.standard_normal((R, C)) * 2) / 2 + 0.25).astype(np.float32)  # no zeros
+    if kind == "split":
+        x = np.repeat(rng.standard_normal((R, C // 3 + 1)).astype(np.float32), 3, axis=1)[:, :C]
+    elif kind == "few_finite":
+        x[:] = -np.inf
+        for r in range(R):
+            x[r, rng.choice(C, r % 5, replace=False)] = rng.integers(-2, 3, r % 5)
+    elif kind == "nan":
+        x[rng.random((R, C)) < 0.3] = np.nan
+        x[rng.random((R, C)) < 0.3] = -np.inf
+        x[: R // 2, : C - 3] = np.nan
+    elif kind == "signed_zeros":
+        x[:, ::3] = -0.0
+        x[:, 1::4] = 0.0
+    return np.ascontiguousarray(x)
+
+
+ROW_KINDS = ["ties", "split", "few_finite", "nan", "signed_zeros"]
+
+
+@pytest.mark.parametrize("kind", ROW_KINDS)
+def test_row_top_k_on_cpu_is_top_k(rng, kind):
+    """``row_top_k`` on CPU tensors is ``top_k`` itself, bit for bit, at
+    every k the kernel takes; where the rows hold no NaN and no zero (whose
+    order XLA's total order sets apart), both also equal ``lax.top_k``."""
+    for C in (33, 300):
+        x = tie_heavy_rows(rng, kind, 24, C)
+        for k in (1, 8, 10, 16, K_MAX):
+            v, i = row_top_k(torch.from_numpy(x), k)
+            tv, ti = topk.top_k(torch.from_numpy(x), k)
+            assert v.dtype == torch.float32 and i.dtype == torch.int64 and v.shape == i.shape == (24, k)
+            assert torch.equal(v.view(torch.int32), tv.view(torch.int32)) and torch.equal(i, ti)
+            if kind in ("ties", "split", "few_finite"):
+                jv, ji = jax.lax.top_k(jnp.asarray(x), k)
+                assert np.array_equal(i.numpy(), np.asarray(ji)) and np.array_equal(v.numpy(), np.asarray(jv))
+
+
+def test_row_top_k_refuses_what_the_kernel_does_not_take():
+    x = torch.zeros((4, 40))
+    for bad_k in (0, K_MAX + 1):
+        with pytest.raises(ValueError, match="k must be"):
+            row_top_k(x, bad_k)
+    with pytest.raises(ValueError, match="k must be"):
+        row_top_k(x[:, :5].contiguous(), 6)
+    for bad in (x.double(), x[None], x.t(), x[:, ::2]):
+        with pytest.raises(ValueError, match="contiguous f32"):
+            row_top_k(bad, 3)
 
 
 def test_compact_by_mask_matches_jax(rng):
