@@ -15,12 +15,19 @@ Elements are permuted cluster by cluster into a padded dense tensor
 
 Steps 1-2, 3's grouping, 3's scoring and 4 run in the ``utils.trace``
 spans ``ivf/probe``, ``ivf/group``, ``ivf/score`` and ``ivf/merge``, and
-``IvfIndex.search_batch`` in ``ivf/search``; while a profiler records, the
-grouping counts the slots scored (``ivf/slots``) and the distinct blocks
-among them (``ivf/blocks``).  The probe's, the merge's and the ungrouped
-search's top-k go through ``ranked``: the card's row top-k kernel for k up
-to ``K_MAX``, the whole-row stable sort past it, the rows of each counted
+``IvfIndex.search_batch`` in ``ivf/search``; inside ``ivf/score``, the
+span ``ivf/epilogue`` holds what follows the kernel (the scale, the mask
+and the row gather).  While a profiler records, the grouping counts the
+slots scored (``ivf/slots``), the distinct blocks among them
+(``ivf/blocks``), the (query, block) pairs (``ivf/pairs``) and the query
+rows of the slots (``ivf/slot_rows``, slots times the group cap).  The
+probe's, the merge's and the ungrouped search's top-k go through
+``ranked``: the card's row top-k kernel for k up to ``K_MAX``, the
+whole-row stable sort past it, the rows of each counted
 (``topk/kernel_rows``, ``topk/sort_rows``) while a profiler records.
+Off the profiler, ``IvfIndex.search_batch`` replays a grouped search of
+CUDA queries from a CUDA graph captured at the first call of its shape,
+so ``ivf/search`` is then its only span.
 
 A cluster larger than L spans several physical blocks, each with a copy of
 the cluster's centroid row, so the coarse probe reaches every sub-block of
@@ -32,7 +39,8 @@ byte for byte.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from collections import OrderedDict
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -47,6 +55,7 @@ from ..utils import trace
 from . import io as gio
 
 IVF_MAGIC = b"granne-tpu-ivf"
+GRAPHS_KEPT = 2  # captured grouped searches an index holds, the most recently used
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
 _DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
@@ -90,6 +99,7 @@ class IvfIndex:
     block_ids: torch.Tensor  # int32[k, L], -1 padding
     block_scales: torch.Tensor  # f32[k, L]: per-row score scale (1.0 unless int8)
     n_total: int
+    _graphs: OrderedDict = field(default_factory=OrderedDict, init=False, repr=False, compare=False)
 
     @property
     def k(self) -> int:
@@ -311,6 +321,7 @@ class IvfIndex:
         group_cap: int = 32,
         fused_topk: bool = False,
         slot_group: int = 8,
+        graph: bool = True,
     ):
         """Top ``num_neighbors`` of each query: (ids int32[B, k], dists f32[B, k]).
 
@@ -320,20 +331,62 @@ class IvfIndex:
         fused score + top-k kernel K5 with ``fused_topk=True``.
         ``grouped=False`` gathers each query's blocks (plain PyTorch, in
         chunks of ``query_chunk`` queries).
+
+        With ``graph`` (default), a grouped search of CUDA queries replays
+        a CUDA graph of the whole search, normalization included, captured
+        at the first call of its shape and options (``_replay``): one
+        launch in place of some eighty, so the host no longer sets the
+        pace.  While a profiler records, the search runs op by op, so its
+        spans and counters see every stage.  Threads that search one index
+        at once take ``graph=False``: a graph has one input buffer.
         """
         with trace.span("ivf/search"):
-            q = D.normalize(D.as_f32(queries, self.device))
-            if grouped:
-                num_slots = slot_count(self.k, q.shape[0], nprobe, group_cap)
+            x = D.as_f32(queries, self.device)
+            if not grouped:
+                return _ivf_search(
+                    self.centroids, self.blocks, self.block_ids, self.block_scales, D.normalize(x),
+                    nprobe=nprobe, k_out=num_neighbors, query_chunk=query_chunk,
+                )
+            num_slots = slot_count(self.k, x.shape[0], nprobe, group_cap)
+
+            def run(x):
                 return _ivf_search_grouped(
-                    self.centroids, self.blocks, self.block_ids, self.block_scales, q,
+                    self.centroids, self.blocks, self.block_ids, self.block_scales, D.normalize(x),
                     nprobe=nprobe, k_out=num_neighbors, group_cap=group_cap, num_slots=num_slots,
                     use_pallas_topk=fused_topk, slot_group=slot_group,
                 )
-            return _ivf_search(
-                self.centroids, self.blocks, self.block_ids, self.block_scales, q,
-                nprobe=nprobe, k_out=num_neighbors, query_chunk=query_chunk,
-            )
+
+            if graph and x.is_cuda and x.shape[0] > 0 and not trace.recording():
+                key = (tuple(x.shape), num_neighbors, nprobe, group_cap, fused_topk, slot_group)
+                return _replay(self._graphs, key, run, x)
+            return run(x)
+
+
+def _replay(graphs: OrderedDict, key, run, x):
+    """``run(x)`` through the CUDA graph that ``graphs`` holds under ``key``,
+    captured first where it holds none; the ``GRAPHS_KEPT`` most recently
+    used keys keep theirs, and an older graph is dropped with its memory.
+    The answers are copies: the next replay overwrites the graph's own."""
+    held = graphs.pop(key, None) or _capture(run, x)
+    graphs[key] = held
+    while len(graphs) > GRAPHS_KEPT:
+        graphs.popitem(last=False)
+    cuda_graph, x_in, outs = held
+    x_in.copy_(x)
+    cuda_graph.replay()
+    return tuple(o.clone() for o in outs)
+
+
+def _capture(run, x):
+    """(graph, input buffer, outputs) of ``run`` captured on a copy of ``x``,
+    after one call op by op that loads the kernels and makes the lazy
+    initialisations a capture refuses."""
+    x_in = x.clone()
+    run(x_in)
+    cuda_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cuda_graph):
+        outs = run(x_in)
+    return cuda_graph, x_in, outs
 
 
 def read_metadata(path) -> dict:
@@ -452,6 +505,8 @@ def search_probed(
         if trace.recording():
             trace.count("ivf/slots", S)
             trace.count("ivf/blocks", _blocks_scored(safe_keys, slot_pairs))
+            trace.count("ivf/pairs", P)
+            trace.count("ivf/slot_rows", S * group_cap)
 
     with trace.span("ivf/score"):
         if use_pallas_topk:
@@ -459,26 +514,28 @@ def search_probed(
             # and the merge shrinks from width L to width k_out; the union of
             # per-slot top-k_out holds the global top-k_out, so it stays exact
             vals, vids = ivf_score.ivf_score_topk(blocks, block_ids, block_scales, safe_keys, qg, k_out=k_out)
-            occupied = (slot_pairs >= 0)[:, :, None]
-            vals = torch.where(occupied, vals, -torch.inf)
-            vids = torch.where(occupied, vids, -1)
-            Kp = vals.shape[2]
-            rows = torch.where(dropped, -torch.inf, vals.reshape(S * group_cap, Kp)[lin])
-            id_rows = torch.where(dropped, -1, vids.reshape(S * group_cap, Kp)[lin])
+            with trace.span("ivf/epilogue"):
+                occupied = (slot_pairs >= 0)[:, :, None]
+                vals = torch.where(occupied, vals, -torch.inf)
+                vids = torch.where(occupied, vids, -1)
+                Kp = vals.shape[2]
+                rows = torch.where(dropped, -torch.inf, vals.reshape(S * group_cap, Kp)[lin])
+                id_rows = torch.where(dropped, -1, vids.reshape(S * group_cap, Kp)[lin])
             width = Kp
         else:
             if slot_group == 1:
                 scores = ivf_score.ivf_score_slots(blocks, safe_keys, qg)
             else:
                 scores = ivf_score.ivf_score_slots_grouped(blocks, safe_keys, qg, group=slot_group)
-            keys = safe_keys.long()
-            ids_g = block_ids[keys]  # [S, L]
-            scores = scores * block_scales[keys][:, None, :]
-            valid = (slot_pairs >= 0)[:, :, None] & (ids_g >= 0)[:, None, :]
-            scores = torch.where(valid, scores, -torch.inf)
-            # each (slot, pos) score row back to its original pair
-            rows = torch.where(dropped, -torch.inf, scores.reshape(S * group_cap, L)[lin])
-            id_rows = torch.where(dropped, -1, ids_g[torch.clamp_min(item_slot, 0).long()])
+            with trace.span("ivf/epilogue"):
+                keys = safe_keys.long()
+                ids_g = block_ids[keys]  # [S, L]
+                scores = scores * block_scales[keys][:, None, :]
+                valid = (slot_pairs >= 0)[:, :, None] & (ids_g >= 0)[:, None, :]
+                scores = torch.where(valid, scores, -torch.inf)
+                # each (slot, pos) score row back to its original pair
+                rows = torch.where(dropped, -torch.inf, scores.reshape(S * group_cap, L)[lin])
+                id_rows = torch.where(dropped, -1, ids_g[torch.clamp_min(item_slot, 0).long()])
             width = L
 
     with trace.span("ivf/merge"):

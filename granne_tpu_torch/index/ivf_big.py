@@ -7,7 +7,12 @@ device, and the blocks are laid out on the host as
 :meth:`~granne_tpu_torch.index.ivf.IvfIndex.build` lays them out.  The
 resulting index either lives on the device or, with
 ``device_resident=False``, stays in host memory.  No pass holds more than
-one chunk of the dataset on the device.
+one chunk of the dataset on the device, and the assignment scores a chunk
+against the centroids in slices of ``kmeans.assign_clusters``'s rows, so
+no score matrix grows with the chunk (a 4M-row chunk against 8,192
+centroids would be 131 GB of f32).  The three stages run in the
+``utils.trace`` spans ``ivf_big/train``, ``ivf_big/assign`` and
+``ivf_big/layout``, each waiting for the device at its end.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from ..models.brute import merge_chunk_topk
 from ..ops import kmeans
 from ..ops.distance import as_f32, inv_norms_i8, normalize
 from ..ops.topk import top_k
+from ..utils import trace
 from .ivf import IvfIndex, layout_blocks
 
 
@@ -32,8 +38,7 @@ def _assign_chunk_f32(x: torch.Tensor, centroids: torch.Tensor):
     """Nearest-centroid assignment (bf16-rounded operands, f32 accumulation)
     + the L2-normalized rows of an f32 chunk."""
     xn = normalize(x)
-    dots = xn.to(torch.bfloat16).to(torch.float32) @ centroids.to(torch.bfloat16).to(torch.float32).T
-    return torch.argmax(dots, dim=1).to(torch.int32), xn
+    return kmeans.assign_clusters(xn.to(torch.bfloat16), _bf16(centroids)), xn
 
 
 def _assign_chunk_i8(x_i8: torch.Tensor, centroids: torch.Tensor):
@@ -43,15 +48,20 @@ def _assign_chunk_i8(x_i8: torch.Tensor, centroids: torch.Tensor):
     the cluster their unit-norm f32 originals would, up to quantization
     noise at near-equal clusters.
     """
-    dots = x_i8.to(torch.float32) @ centroids.to(torch.bfloat16).to(torch.float32).T
-    return torch.argmax(dots, dim=1).to(torch.int32), inv_norms_i8(x_i8)
+    return kmeans.assign_clusters(x_i8, _bf16(centroids)), inv_norms_i8(x_i8)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16, as f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
 def _train(sample: np.ndarray, n_clusters, kmeans_iters, seed, device, log):
     take = sample.shape[0]
     log(f"[ivf_big] kmeans: k={n_clusters} on {take} samples, {kmeans_iters} iters")
-    x = normalize(as_f32(sample, device))
-    centroids, _ = kmeans.train_kmeans(x, n_clusters, iters=kmeans_iters, seed=seed)
+    with trace.span("ivf_big/train", block=True):
+        x = normalize(as_f32(sample, device))
+        centroids, _ = kmeans.train_kmeans(x, n_clusters, iters=kmeans_iters, seed=seed)
     return centroids
 
 
@@ -80,17 +90,20 @@ def build_ivf_f32_chunked(
 
     assign = np.empty((n,), np.int32)
     xn = np.empty((n, d), np.float32)
-    for lo in range(0, n, chunk):
-        hi = min(lo + chunk, n)
-        a, xnc = _assign_chunk_f32(as_f32(x[lo:hi], device), centroids)
-        assign[lo:hi] = a.cpu().numpy()
-        xn[lo:hi] = xnc.cpu().numpy()
-        log(f"[ivf_big] assigned {hi}/{n}")
+    with trace.span("ivf_big/assign", block=True):
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            a, xnc = _assign_chunk_f32(as_f32(x[lo:hi], device), centroids)
+            assign[lo:hi] = a.cpu().numpy()
+            xn[lo:hi] = xnc.cpu().numpy()
+            log(f"[ivf_big] assigned {hi}/{n}")
 
     L = -(-cluster_cap // 8) * 8
-    blocks, ids, cent = layout_blocks(xn, centroids.cpu().numpy(), assign, n_clusters, L)
+    with trace.span("ivf_big/layout", block=True):
+        blocks, ids, cent = layout_blocks(xn, centroids.cpu().numpy(), assign, n_clusters, L)
+        index = IvfIndex._from_f32_blocks(blocks, ids, cent, n, dtype, torch.device(device))
     log(f"[ivf_big] layout: {blocks.shape[0]} physical blocks of L={L} ({blocks.shape[0] * L / n - 1:+.1%} padding)")
-    return IvfIndex._from_f32_blocks(blocks, ids, cent, n, dtype, torch.device(device))
+    return index
 
 
 def build_ivf_i8_chunked(
@@ -126,27 +139,30 @@ def build_ivf_i8_chunked(
     # 2. streaming assignment over int8 chunks
     assign = np.empty((n,), np.int32)
     inv_norms = np.empty((n,), np.float32)
-    for lo in range(0, n, chunk):
-        hi = min(lo + chunk, n)
-        a, iv = _assign_chunk_i8(torch.tensor(np.asarray(x_i8[lo:hi]), device=device), centroids)
-        assign[lo:hi] = a.cpu().numpy()
-        inv_norms[lo:hi] = iv.cpu().numpy()
-        log(f"[ivf_big] assigned {hi}/{n}")
+    with trace.span("ivf_big/assign", block=True):
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            a, iv = _assign_chunk_i8(torch.tensor(np.asarray(x_i8[lo:hi]), device=device), centroids)
+            assign[lo:hi] = a.cpu().numpy()
+            inv_norms[lo:hi] = iv.cpu().numpy()
+            log(f"[ivf_big] assigned {hi}/{n}")
 
-    # 3. fixed-size sub-block layout (host)
+    # 3. fixed-size sub-block layout (host), then to where the index lives
     L = -(-cluster_cap // 8) * 8
-    cent_np = centroids.cpu().numpy()
-    blocks, ids, cent = layout_blocks(np.asarray(x_i8, np.int8), cent_np, assign, n_clusters, L)
-    scales = layout_blocks(inv_norms[:, None], cent_np, assign, n_clusters, L)[0][..., 0]  # the same placement
-    log(f"[ivf_big] layout: {blocks.shape[0]} physical blocks of L={L} ({blocks.shape[0] * L / n - 1:+.1%} padding)")
     where = device if device_resident else "cpu"
-    return IvfIndex(
-        centroids=torch.as_tensor(cent, device=where),
-        blocks=torch.as_tensor(blocks, device=where),
-        block_ids=torch.as_tensor(ids, device=where),
-        block_scales=torch.as_tensor(scales, device=where),
-        n_total=n,
-    )
+    with trace.span("ivf_big/layout", block=True):
+        cent_np = centroids.cpu().numpy()
+        blocks, ids, cent = layout_blocks(np.asarray(x_i8, np.int8), cent_np, assign, n_clusters, L)
+        scales = np.where(ids >= 0, inv_norms[ids], np.float32(0))  # each placed row's own, 0 for padding
+        index = IvfIndex(
+            centroids=torch.as_tensor(cent, device=where),
+            blocks=torch.as_tensor(blocks, device=where),
+            block_ids=torch.as_tensor(ids, device=where),
+            block_scales=torch.as_tensor(scales, device=where),
+            n_total=n,
+        )
+    log(f"[ivf_big] layout: {blocks.shape[0]} physical blocks of L={L} ({blocks.shape[0] * L / n - 1:+.1%} padding)")
+    return index
 
 
 def exact_topk_over_blocks(index: IvfIndex, q, k: int, *, block_chunk: int = 2048):

@@ -355,7 +355,8 @@ def test_ivf_topk_launches_capture_in_a_cuda_graph(cuda):
 
 def test_ivf_search_on_card_matches_cpu(cuda):
     """The same index searched on the card (K4, K3, K5) and on the CPU
-    (plain versions): ids overlap >= 0.99, and each route launched its kernel."""
+    (plain versions): ids overlap >= 0.99, and each route launched its kernel
+    once (op by op, ``graph=False``: a graph's replay is not counted)."""
     rng = np.random.default_rng(0)
     centers = rng.standard_normal((40, 48)).astype(np.float32)
     x = (centers[rng.integers(0, 40, 4000)] + 0.35 * rng.standard_normal((4000, 48))).astype(np.float32)
@@ -373,13 +374,90 @@ def test_ivf_search_on_card_matches_cpu(cuda):
     ]
     for kw, kernel in routes:
         before = kernel.launches
-        ids, dists = card.search_batch(q, 10, nprobe=6, **kw)
+        ids, dists = card.search_batch(q, 10, nprobe=6, graph=False, **kw)
         torch.cuda.synchronize()
         assert kernel.launches == before + 1
         assert torch.isfinite(dists).all()
         got = ids.cpu().numpy()
         overlap = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got, want)])
         assert overlap >= 0.99, (kw, overlap)
+
+
+def test_k4_over_int8_deployment_blocks_matches_plain(cuda):
+    """K4 over int8 blocks of the deep-image-96 deployment's shape (L 512 in
+    row tiles, d 96, runs of equal keys, the real inverse norms as scales)
+    equals its plain version to f32 summation-order rounding on the cosine
+    scale: both sum the same exact products of int8 codes and bf16 queries."""
+    blocks, ids, scales, keys, qg = _ivf_case(cuda, torch.int8, 300, 512, 96, 900, 32, seed=19, runs=True)
+    assert float(scales.min()) < float(scales.max()) < 1.0  # codes' norms, not unit rows
+    ref = K.ivf_score_slots_reference(blocks, keys, qg)
+    before = K.ivf_score_slots_grouped.launches
+    got = K.ivf_score_slots_grouped(blocks, keys, qg, group=8)
+    torch.cuda.synchronize()
+    assert K.ivf_score_slots_grouped.launches == before + 1
+    row_scale = scales[keys.long()][:, None, :]
+    assert float(((got - ref) * row_scale).abs().max()) <= 1e-6
+
+
+def _i8_deployment(n, d=96, queries=300, seed=19):
+    """Blob vectors as the plain reference's max-abs codes (host int8), and
+    held-out queries."""
+    import plain_ivf_i8 as plain
+
+    gen = torch.Generator().manual_seed(seed)
+    centres = torch.randn((60, d), generator=gen)
+    x = centres[torch.randint(0, 60, (n + queries,), generator=gen)] + 0.35 * torch.randn((n + queries, d), generator=gen)
+    return plain, plain.quantize(x[:n]), x[n:]
+
+
+def _equal_but_near_ties(ids, want_ids, want_d, tol=1e-6):
+    """Ids equal wherever ``want_d`` has no neighbour within ``tol`` (the
+    value just past the last column not known, so the last column counts
+    as tied)."""
+    gaps = (want_d[:, 1:] - want_d[:, :-1]).abs() <= tol
+    near = torch.zeros_like(want_d, dtype=torch.bool)
+    near[:, 1:] |= gaps
+    near[:, :-1] |= gaps
+    near[:, -1] = True
+    return torch.equal(ids[~near], want_ids[~near])
+
+
+def test_int8_chunked_index_searches_alike_on_card_and_cpu(cuda):
+    """An int8 index from ``build_ivf_i8_chunked`` (three chunks, L 512,
+    d 96) searched on the card (the grouped route op by op: K4 and
+    ``row_top_k`` at the probe's k 32) and on the CPU (plain versions), and
+    on the card through the route's CUDA graph: the same ids but at
+    near ties, distances within 1e-6.  Built on the card as well, at full
+    probe it returns the plain reference's top-10 at the stated precision
+    (codes exact, the query in bf16)."""
+    from granne_tpu_torch.index import ivf_big
+
+    plain, codes, q = _i8_deployment(20_000)
+    kw = dict(n_clusters=32, cluster_cap=512, kmeans_iters=4, kmeans_sample=8192, chunk=7000, log=lambda m: None)
+    cpu = ivf_big.build_ivf_i8_chunked(codes.numpy(), device="cpu", **kw)
+    card = g.IvfIndex(
+        centroids=cpu.centroids.to(cuda), blocks=cpu.blocks.to(cuda), block_ids=cpu.block_ids.to(cuda),
+        block_scales=cpu.block_scales.to(cuda), n_total=cpu.n_total,
+    )
+    want_ids, want_d = cpu.search_batch(q, 10, nprobe=32)
+    before = (K.ivf_score_slots_grouped.launches, row_top_k.launches)
+    ids, dists = card.search_batch(q.to(cuda), 10, nprobe=32, graph=False)
+    torch.cuda.synchronize()
+    assert (K.ivf_score_slots_grouped.launches, row_top_k.launches) == (before[0] + 1, before[1] + 2)
+    assert _equal_but_near_ties(ids.cpu(), want_ids, want_d)
+    assert float((dists.cpu() - want_d).abs().max()) <= 1e-6
+    replayed = card.search_batch(q.to(cuda), 10, nprobe=32)
+    assert torch.equal(replayed[0], ids) and torch.equal(replayed[1], dists)
+
+    built = ivf_big.build_ivf_i8_chunked(codes.numpy(), device="cuda", **kw)
+    assert built.blocks.is_cuda and built.blocks.dtype == torch.int8
+    assert sorted(built.block_ids[built.block_ids >= 0].tolist()) == list(range(codes.shape[0]))
+    ids, dists = built.search_batch(q.to(cuda), 10, nprobe=built.k)
+    ids = ids.cpu().long()
+    ref_d = plain.id_dists(codes, q, ids)
+    ref_ids, ref_top = plain.exact_topk(codes, q, 10, query_bf16=True)
+    assert _equal_but_near_ties(ids, ref_ids, ref_top)
+    assert float((dists.cpu() - ref_d).abs().max()) <= 1e-6
 
 
 # -- the row top-k ----------------------------------------------------------
@@ -463,7 +541,8 @@ def test_ivf_search_on_card_launches_row_top_k_over_split_clusters(cuda, monkeyp
     """``IvfIndex.search_batch`` on the card, over clusters larger than L
     (each block of a split cluster carries the cluster's centroid row, so
     probe scores tie exactly): the probe and the merge launch ``row_top_k``,
-    and the ids and distances equal those of the whole-row sort's route."""
+    and the ids and distances equal those of the whole-row sort's route
+    (both op by op, ``graph=False``, so each call runs the route it names)."""
     from granne_tpu_torch.index import ivf
 
     rng = np.random.default_rng(3)
@@ -472,7 +551,7 @@ def test_ivf_search_on_card_launches_row_top_k_over_split_clusters(cuda, monkeyp
     index = g.IvfIndex.build(x, n_clusters=40, kmeans_iters=4, cluster_cap=128, device="cuda")
     assert index.k > 80  # ~500 members a cluster: every cluster split
     q = torch.as_tensor(x[:3000], device=cuda)
-    for kw in (dict(), dict(fused_topk=True), dict(grouped=False)):
+    for kw in (dict(graph=False), dict(fused_topk=True, graph=False), dict(grouped=False)):
         before = row_top_k.launches
         ids, dists = index.search_batch(q, 10, nprobe=12, **kw)
         torch.cuda.synchronize()
@@ -483,6 +562,37 @@ def test_ivf_search_on_card_launches_row_top_k_over_split_clusters(cuda, monkeyp
             want_ids, want_d = index.search_batch(q, 10, nprobe=12, **kw)
         assert row_top_k.launches == before + launched
         assert torch.equal(ids, want_ids) and torch.equal(dists, want_d), kw
+
+
+def test_ivf_search_replays_a_cuda_graph_equal_to_op_by_op(cuda):
+    """``IvfIndex.search_batch`` off the profiler replays a CUDA graph of the
+    grouped search (K4, K3 and K5 routes): over two different batches of one
+    shape its ids and distances equal the op-by-op search's bit for bit, an
+    answer already returned is not overwritten by the next replay, a graph
+    is captured once a key (a replay launches no kernel from Python), and
+    the index keeps ``GRAPHS_KEPT`` graphs, the most recently used."""
+    from granne_tpu_torch.index import ivf
+
+    rng = np.random.default_rng(11)
+    centers = rng.standard_normal((40, 96)).astype(np.float32)
+    x = (centers[rng.integers(0, 40, 20_000)] + 0.35 * rng.standard_normal((20_000, 96))).astype(np.float32)
+    index = g.IvfIndex.build(x, n_clusters=60, kmeans_iters=4, cluster_cap=256, device="cuda")
+    qa, qb = (torch.as_tensor(x[lo : lo + 2000], device=cuda) for lo in (0, 5000))
+    routes = [(dict(), K.ivf_score_slots_grouped), (dict(slot_group=1), K.ivf_score_slots),
+              (dict(fused_topk=True), K.ivf_score_topk)]
+    for kw, kernel in routes:
+        want_a = index.search_batch(qa, 10, nprobe=8, graph=False, **kw)
+        want_b = index.search_batch(qb, 10, nprobe=8, graph=False, **kw)
+        got_a = index.search_batch(qa, 10, nprobe=8, **kw)  # captured here
+        before = (kernel.launches, row_top_k.launches)
+        got_b = index.search_batch(qb, 10, nprobe=8, **kw)  # a replay
+        torch.cuda.synchronize()
+        assert (kernel.launches, row_top_k.launches) == before, kw
+        for got, want in ((got_a, want_a), (got_b, want_b)):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), kw
+        assert not torch.equal(got_a[0], got_b[0])
+    assert len(index._graphs) == ivf.GRAPHS_KEPT
+    assert list(index._graphs)[-1] == ((2000, 96), 10, 8, 32, True, 8)
 
 
 # -- int8 elements ----------------------------------------------------------
@@ -847,7 +957,8 @@ def test_trace_span_blocks_on_k1_calls(cuda):
 def test_ivf_spans_time_the_device(cuda, monkeypatch):
     """Under a profiler every ``ivf/*`` span of a K4 search gets a device
     time: the four stages' sum within ``ivf/search``'s, ``ivf/score``'s at
-    least ``slot_score_kernel``'s own in the same profile.  Pairs still
+    least ``slot_score_kernel``'s own in the same profile and above
+    ``ivf/epilogue``'s, which runs inside it.  Pairs still
     pending when ``summary()`` is called are resolved there, and pairs
     resolved early (past the drain mark) are not lost; ``count`` adds a
     device tensor without a sync."""
@@ -868,13 +979,16 @@ def test_ivf_spans_time_the_device(cuda, monkeypatch):
         index.search_batch(q, 10, nprobe=8)
     pending = len(trace._pending)
     got = trace.summary()
-    assert pending == 5 and not trace._pending and sum(map(len, trace._free.values())) >= 2 * pending
-    assert all(got[name]["device_s"] > 0 and got[name]["count"] == 1 for name in ["ivf/search", *stages])
+    assert pending == 6 and not trace._pending and sum(map(len, trace._free.values())) >= 2 * pending
+    assert all(got[name]["device_s"] > 0 and got[name]["count"] == 1
+               for name in ["ivf/search", "ivf/epilogue", *stages])
     assert sum(got[name]["device_s"] for name in stages) <= got["ivf/search"]["device_s"]
     kernel_s = sum(e.end_ns() - e.start_ns() for e in prof.profiler.kineto_results.events()
                    if e.device_type() != torch.autograd.DeviceType.CPU and "slot_score_kernel" in e.name()) / 1e9
     assert 0 < kernel_s <= got["ivf/score"]["device_s"]
+    assert got["ivf/epilogue"]["device_s"] < got["ivf/score"]["device_s"]
     assert got["ivf/slots"]["total"] > got["ivf/blocks"]["total"] > 0
+    assert got["ivf/slot_rows"]["total"] >= got["ivf/pairs"]["total"] == 4000 * 8
 
     trace.reset()
     monkeypatch.setattr(trace, "_DRAIN_AT", 0)

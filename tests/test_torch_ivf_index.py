@@ -206,10 +206,12 @@ def _cpu_profile():
 def test_search_spans_nest_in_order_and_count_slots_and_blocks(rng, route):
     """Under a profiler one grouped search opens each ``ivf/*`` span once, as
     user annotations, the four stages inside ``ivf/search`` in the order
-    probe, group, score, merge; ``ivf/slots`` is ``slot_count``'s and
-    ``ivf/blocks`` the distinct probed blocks (some hot blocks spill into
-    further slots at a group cap of 4).  The answers are bit-identical with
-    and without the profiler, and off it nothing is counted."""
+    probe, group, score, merge, and ``ivf/epilogue`` inside ``ivf/score``;
+    ``ivf/slots`` is ``slot_count``'s and ``ivf/blocks`` the distinct
+    probed blocks (some hot blocks spill into further slots at a group cap
+    of 4), ``ivf/pairs`` the queries times nprobe and ``ivf/slot_rows`` the
+    slots times the cap.  The answers are bit-identical with and without
+    the profiler, and off it nothing is counted."""
     from granne_tpu_torch.ops import distance
     from granne_tpu_torch.utils import trace
 
@@ -232,9 +234,11 @@ def test_search_spans_nest_in_order_and_count_slots_and_blocks(rng, route):
     blocks = torch.unique(probes).numel()
     slots = ivf.slot_count(index.k, len(q), nprobe, cap)
     assert got.pop("ivf/slots") == {"total": slots} and got.pop("ivf/blocks") == {"total": blocks}
+    assert got.pop("ivf/pairs") == {"total": len(q) * nprobe}
+    assert got.pop("ivf/slot_rows") == {"total": slots * cap}
     assert got.pop("topk/kernel_rows") == {"total": 2 * len(q)}  # the probe's rows and the merge's
     assert blocks < index.k and slots > blocks
-    assert sorted(got) == sorted(["ivf/search", *STAGES])
+    assert sorted(got) == sorted(["ivf/search", "ivf/epilogue", *STAGES])
     assert all(v["count"] == 1 and "device_s" not in v for v in got.values())
 
     spans = {e.name(): (e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
@@ -243,7 +247,63 @@ def test_search_spans_nest_in_order_and_count_slots_and_blocks(rng, route):
     lo, hi = spans["ivf/search"]
     edges = [lo] + [t for name in STAGES for t in spans[name]] + [hi]
     assert edges == sorted(edges)
+    (s0, s1), (e0, e1) = spans["ivf/score"], spans["ivf/epilogue"]
+    assert s0 <= e0 <= e1 <= s1
     trace.reset()
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_search_of_cpu_queries_captures_no_graph(rng, route):
+    """``graph`` (the default) takes CUDA queries only: on the CPU each
+    route answers op by op, bit for bit as with ``graph=False``, and the
+    index holds no graph."""
+    x = _clustered(rng, 3000, 16, c=12)
+    index = IvfIndex.build(x, n_clusters=48, kmeans_iters=3, cluster_cap=64, device="cpu")
+    kw = dict(nprobe=3, group_cap=4, **ROUTES[route])
+    ids, dists = index.search_batch(x[:40], 10, **kw)
+    want_ids, want_d = index.search_batch(x[:40], 10, graph=False, **kw)
+    assert torch.equal(ids, want_ids) and torch.equal(dists, want_d)
+    assert not index._graphs
+
+
+def test_replay_captures_a_key_once_and_keeps_the_most_recently_used(monkeypatch):
+    """``_replay``'s bookkeeping, with a stand-in for the CUDA capture: a
+    key's graph is captured once and replayed after; each input is copied
+    into the graph's buffer before its replay; the answers are copies, so
+    the next replay leaves them as they were; and only the ``GRAPHS_KEPT``
+    most recently used keys keep a graph."""
+    from collections import OrderedDict
+
+    captures = []
+
+    class StandIn:  # replays by running ``run`` on its buffer into its outputs
+        def __init__(self, run, x_in):
+            self.run, self.x_in, self.outs = run, x_in, run(x_in)
+
+        def replay(self):
+            for out, new in zip(self.outs, self.run(self.x_in)):
+                out.copy_(new)
+
+    def capture(run, x):
+        captures.append(x.clone())
+        graph = StandIn(run, x.clone())
+        return graph, graph.x_in, graph.outs
+
+    monkeypatch.setattr(ivf, "_capture", capture)
+    monkeypatch.setattr(ivf, "GRAPHS_KEPT", 2)
+    graphs = OrderedDict()
+    run = lambda x: (x * 2, x + 1)  # noqa: E731
+    a, b, c = (torch.full((3,), float(v)) for v in (1, 2, 3))
+    first = ivf._replay(graphs, "a", run, a)
+    second = ivf._replay(graphs, "a", run, b)
+    assert len(captures) == 1
+    assert torch.equal(first[0], a * 2) and torch.equal(first[1], a + 1)
+    assert torch.equal(second[0], b * 2) and torch.equal(second[1], b + 1)
+    ivf._replay(graphs, "b", run, c)
+    ivf._replay(graphs, "a", run, c)
+    ivf._replay(graphs, "c", run, a)
+    assert list(graphs) == ["a", "c"] and len(captures) == 3
+    assert torch.equal(ivf._replay(graphs, "a", run, c)[0], c * 2) and len(captures) == 3
 
 
 def _reader(name):
