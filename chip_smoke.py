@@ -30,7 +30,18 @@ In the order it runs:
    1e-4 on the cosine scale, K5 values within 1e-4 and ids equal except
    at near-ties (values within 1e-4 of a neighbour in the plain ranking,
    the first value past the k_out-th included); exactly tied rows rank the lower column first, within a
-   row tile and across the big block's row tiles.  Then ``row_top_k``
+   row tile and across the big block's row tiles.  The pair store
+   (``ivf_score_pairs``, the search's K4/K3 route) on the same cases, its
+   places holding distinct pairs at about the serve cells' 30% fill and the
+   last eighth of the slots unused: every row it writes equals K4's scores
+   times the row's scale, -inf where the id is negative, bit for bit, and
+   is within 1e-4 of its plain version (the same -inf places).  Then the
+   pair store at both IVF cells' shapes (glove-100's 6,467 bf16 blocks of
+   L 256, nprobe 8; deep-image-96's 23,590 int8 blocks of L 512 with real
+   scales, nprobe 32; 10,000 queries over uniformly random distinct probes,
+   grouped by ``slot_groups`` at ``slot_count``'s size): checked the same
+   way, then timed against its plain version and its bound
+   (``cell_shapes`` in its record).  Then ``row_top_k``
    against its plain version ``ops/topk.py::top_k`` at the IVF cell's two
    top-k shapes (the probe's [10,000 x 6,467] at k 8, the merge's
    [10,000 x 2,048] at k 10, random scores): values and columns equal, and
@@ -78,13 +89,15 @@ In the order it runs:
    must agree with the K4 route (id overlap >= 0.999), each timed.  Then
    bf16 brute force, and an int8 index from ``build_ivf_i8_chunked`` (four
    50,000-row chunks) whose recall at nprobe 16 is at most 0.01 below the
-   int8 brute-force recall.  The path must have launched K3, K4, K5 and
-   ``row_top_k`` (the probe's and the merge's top-k).
+   int8 brute-force recall.  The path must have launched the pair store
+   (``ivf_score_pairs``: the K4 and K3 routes), K5 and ``row_top_k`` (the
+   probe's and the merge's top-k).
    At nprobe 4, one warm ``search_batch`` per route (K4, fused K5) under
    ``torch.profiler``: host wall, device time, busy share, device ops and
-   the five largest.  Then K3/K4/K5 timed again on the path's own slots
-   (``slot_groups`` at nprobe 4: keys in sorted runs, 1,520 slots), each
-   with its own bound (``path_keys_*`` in the kernel records).
+   the five largest.  Then K3/K4/K5 and the pair store timed again on the
+   path's own slots (``slot_groups`` at nprobe 4: keys in sorted runs,
+   1,520 slots, the pair store into the search's [4,096 x 4, 256] rows),
+   each with its own bound (``path_keys_*`` in the kernel records).
 
 10. Reorder on the card: step 5's saved 200k f32 pair loaded on the card
     and renumbered by ``Granne.reorder()`` (entrypoint trails through the
@@ -144,7 +157,7 @@ In the order it runs:
     search, the blocks fetched a batch and the pinned H2D rate are logged.
     Then step 9's int8 chunked build with ``device_resident=False`` ->
     ``TieredIvf.from_ivf`` at nprobe 16 must equal the device copy of the
-    same index, ids and distances.  K4 must have launched
+    same index, ids and distances.  The pair store must have launched
     (``tiered_path_launches``).
 15. Multi-device serving (``granne_tpu_torch.parallel``), ranks spawned by
     ``run_ranks`` after the parent has built the kernels.  (a) A world of
@@ -166,8 +179,8 @@ In the order it runs:
     and save -> load in the four ranks give the same ids.  Every rank must
     return the same answers.  Logged: build seconds, QPS (batch 1,024) a
     world and route, the merge's time and, for gloo, the bytes through the
-    host a batch, the step's wall.  K4 and K5 must have launched in the
-    ranks (``sharded_path_launches``).
+    host a batch, the step's wall.  The pair store and K5 must have launched
+    in the ranks (``sharded_path_launches``).
 16. The data-parallel build (``build_layers(..., group=...)``,
     ``parallel/dp_build.py``: each wave's search split over the ranks, its
     edges all-gathered, the graph update replicated), ranks spawned by
@@ -271,6 +284,11 @@ IVF_CASES = (
 )
 IVF_SLOT_CAP, IVF_GROUP = 32, 8
 PATH_NPROBE = 4  # the IVF path's slots for K3-K5 timed on its own keys (the first nprobe reaching 0.95)
+PAIR_FILL = 0.3  # the share of slot places holding a pair in the pair store's cases (the cells' slot_fill)
+# the pair store at the IVF cells' shapes: (name, block dtype, blocks, L, d, queries, nprobe)
+PAIR_CELL_SHAPES = (("glove100-ivf", "bfloat16", 6467, 256, 100, 10_000, 8),
+                    ("deep96-i8-ivf", "int8", 23_590, 512, 96, 10_000, 32))
+PAIR_CELL_TIMED = 4  # calls a timed graph at the cells' shapes (the plain version holds ~15 GB a call at deep96's)
 # row_top_k: the IVF cell's probe (10,000 queries x 6,467 blocks, nprobe 8) and merge (nprobe 8 x L 256, k 10)
 ROW_TOPK_SHAPES = (("probe", 10_000, 6467, 8), ("merge", 10_000, 2048, 10))
 ROW_TOPK_INPUTS = 2  # score matrices timed in turn (each past the 50 MB L2)
@@ -592,17 +610,42 @@ def ivf_case(torch, dtype, k, L, d, S, seed):
     return blocks, ids, scales, keys, qg
 
 
-def ivf_times(torch, inputs, base_lib) -> dict:
-    """K3/K4/K5 and their plain versions timed in turns on ``inputs``
-    (blocks, ids, scales, keys, qg), each with its bound; with ``base_lib``
-    an earlier build's K3/K4/K5 too (its K5 as its wrapper called it, after
-    two ``torch.full`` fills of the outputs).  Returns {kernel: record}."""
+def pair_store_bound(torch, blocks, keys, qg, slot_pairs) -> dict:
+    """Bound of one pair-store call: each distinct block read once with its
+    ids and scales, the query groups, keys and places read once, the held
+    places' rows written once, the held places' dots."""
+    L, d = blocks.shape[1:]
+    S, cap = slot_pairs.shape
+    held = int((slot_pairs >= 0).sum())
+    nbytes = (int(torch.unique(keys).numel()) * L * (d * blocks.element_size() + 8) + S * cap * (d * 2 + 4) + S * 4
+              + held * L * 4)
+    return bound(nbytes, 2.0 * held * L * d)
+
+
+def pair_store_timed(torch, inputs, calls) -> dict:
+    """The pair store and its plain version timed in turns on ``inputs``
+    (blocks, ids, scales, keys, qg, slot_pairs, out), ``calls`` a graph,
+    with its bound."""
     from granne_tpu_torch.ops.kernels import ivf_score as KS
 
-    blocks, _, _, keys, qg = inputs
+    blocks, _, _, keys, qg, slot_pairs, _ = inputs
+    return {**timed_pair(torch, lambda *a: KS.ivf_score_pairs(*a, group=IVF_GROUP), KS.ivf_score_pairs_reference,
+                         [inputs] * calls),
+            **pair_store_bound(torch, blocks, keys, qg, slot_pairs)}
+
+
+def ivf_times(torch, inputs, base_lib) -> dict:
+    """K3/K4/K5, the pair store and their plain versions timed in turns on
+    ``inputs`` (blocks, ids, scales, keys, qg, slot_pairs, out), each with
+    its bound; with ``base_lib`` an earlier build's K3/K4/K5 too (its K5 as
+    its wrapper called it, after two ``torch.full`` fills of the outputs).
+    Returns {kernel: record}."""
+    from granne_tpu_torch.ops.kernels import ivf_score as KS
+
+    blocks, _, _, keys, qg, _, _ = inputs
     L, d = blocks.shape[1:]
     S = keys.shape[0]
-    args = [inputs] * IVF_TIMED
+    args = [inputs[:5]] * IVF_TIMED
     pairs = {
         "ivf_score_slots": (lambda b, _i, _s, kk, q: KS.ivf_score_slots(b, kk, q),
                             lambda b, _i, _s, kk, q: KS.ivf_score_slots_reference(b, kk, q)),
@@ -629,6 +672,92 @@ def ivf_times(torch, inputs, base_lib) -> dict:
         out[kname] = {**timed_pair(torch, kernel, plain, args, base.get(kname)),
                       **(topk_bound if kname == "ivf_score_topk" else slot_bound),
                       "distinct_blocks": blocks_read // L}
+    out["ivf_score_pairs"] = {**pair_store_timed(torch, inputs, IVF_TIMED), "distinct_blocks": blocks_read // L}
+    return out
+
+
+def place_pairs(torch, S, seed):
+    """Slot places as a search's grouping leaves them: about PAIR_FILL of
+    the places of the first seven eighths of the ``S`` slots hold distinct
+    pairs, every other place -1.  Returns (slot_pairs int32 [S, cap], the
+    number of pairs)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    held = torch.rand((S, IVF_SLOT_CAP), generator=gen, device="cuda") < PAIR_FILL
+    held[S - S // 8 :] = False
+    P = int(held.sum())
+    slot_pairs = torch.full((S, IVF_SLOT_CAP), -1, dtype=torch.int32, device="cuda")
+    slot_pairs[held] = torch.randperm(P, generator=gen, device="cuda").to(torch.int32)
+    return slot_pairs, P
+
+
+def check_pair_store(torch, inputs, k4, what) -> float:
+    """The pair store on ``inputs`` (blocks, ids, scales, keys, qg,
+    slot_pairs, out) against K4's scores ``k4`` times the row's scale, -inf
+    where the id is negative (bit for bit, every row it writes), and
+    against its plain version (the same -inf places, values within
+    IVF_ATOL).  Returns the largest difference from the plain version."""
+    from granne_tpu_torch.ops.kernels import ivf_score as KS
+
+    blocks, ids, scales, keys, qg, slot_pairs, out = inputs
+    got = KS.ivf_score_pairs(blocks, ids, scales, keys, qg, slot_pairs, out.fill_(-torch.inf), group=IVF_GROUP)
+    plain = KS.ivf_score_pairs_reference(blocks, ids, scales, keys, qg, slot_pairs, torch.full_like(out, -torch.inf))
+    held = slot_pairs >= 0
+    k = keys.long()
+    want = torch.where((ids[k] >= 0)[:, None, :], k4 * scales[k][:, None, :], -torch.inf)[held]
+    if not torch.equal(got[slot_pairs[held].long()].view(torch.int32), want.view(torch.int32)):
+        fail(f"ivf_score_pairs differs from K4's scores times the row scales ({what})")
+    fin = torch.isfinite(plain)
+    if not torch.equal(torch.isfinite(got), fin):
+        fail(f"ivf_score_pairs -inf places differ from the plain version ({what})")
+    err = float((got[fin] - plain[fin]).abs().max())
+    if err > IVF_ATOL:
+        fail(f"ivf_score_pairs differs from the plain version by {err} > {IVF_ATOL} ({what})")
+    del got, plain, want
+    return err
+
+
+def pair_store_cells(torch) -> dict:
+    """The pair store at PAIR_CELL_SHAPES (see the module docstring, step
+    4): checked, then timed beside its plain version and bound.  Returns
+    {shape name: record}."""
+    from granne_tpu_torch.index import ivf
+    from granne_tpu_torch.ops import distance
+    from granne_tpu_torch.ops.kernels import ivf_score as KS
+
+    out = {}
+    for seed, (what, dtype, k, L, d, B, nprobe) in enumerate(PAIR_CELL_SHAPES):
+        dtype = getattr(torch, dtype)
+        gen = torch.Generator(device="cuda").manual_seed(100 + seed)
+        blocks = torch.empty((k, L, d), dtype=dtype, device="cuda")
+        scales = torch.ones((k, L), dtype=torch.float32, device="cuda")
+        for lo in range(0, k, 2048):  # unit rows, drawn in chunks to bound the f32 draw
+            rows = distance.normalize(torch.randn((min(2048, k - lo), L, d), generator=gen, device="cuda"))
+            if dtype == torch.int8:
+                blocks[lo : lo + 2048] = distance.quantize_i8(rows)
+                scales[lo : lo + 2048] = distance.inv_norms_i8(blocks[lo : lo + 2048])
+            else:
+                blocks[lo : lo + 2048] = rows.to(dtype)
+            del rows
+        ids = torch.arange(k * L, dtype=torch.int32, device="cuda").reshape(k, L)
+        ids[:, L - L // 5 :] = -1
+        q = distance.normalize(torch.randn((B, d), generator=gen, device="cuda"))
+        probes = torch.rand((B, k), generator=gen, device="cuda").argsort(dim=1)[:, :nprobe]
+        keys, qg, slot_pairs = ivf.slot_groups(q, probes, blocks, group_cap=IVF_SLOT_CAP,
+                                               num_slots=ivf.slot_count(k, B, nprobe, IVF_SLOT_CAP))[:3]
+        inputs = (blocks, ids, scales, keys, qg, slot_pairs,
+                  torch.empty((B * nprobe, L), dtype=torch.float32, device="cuda"))
+        k4 = KS.ivf_score_slots_grouped(blocks, keys, qg, group=IVF_GROUP)
+        err = check_pair_store(torch, inputs, k4, f"{what} shape")
+        del k4, probes, q
+        rec = {**pair_store_timed(torch, inputs, PAIR_CELL_TIMED), "max_abs_err": err, "slots": keys.shape[0],
+               "pairs": B * nprobe, "held_places": int((slot_pairs >= 0).sum()),
+               "distinct_blocks": int(torch.unique(keys).numel())}
+        rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+        log(f"ivf_score_pairs at {what}'s shape ({str(dtype)[6:]} blocks {k} x L {L} x d {d}, {B} queries, "
+            f"nprobe {nprobe}): {rec}")
+        out[what] = rec
+        del blocks, scales, ids, keys, qg, slot_pairs, inputs
+        torch.cuda.empty_cache()
     return out
 
 
@@ -637,8 +766,10 @@ def ivf_kernel_phase(torch, base_lib):
     build's K3/K4/K5 timed in the same turns).  Returns {kernel: record}."""
     from granne_tpu_torch.ops.kernels import ivf_score as KS
 
-    recs = {n: {"max_abs_err": 0.0} for n in ("ivf_score_slots", "ivf_score_slots_grouped", "ivf_score_topk")}
+    recs = {n: {"max_abs_err": 0.0}
+            for n in ("ivf_score_slots", "ivf_score_slots_grouped", "ivf_score_topk", "ivf_score_pairs")}
     for seed, (name, k, L, d, S) in enumerate(IVF_CASES):
+        slot_pairs, P = place_pairs(torch, S, seed)
         for dtype in (torch.bfloat16, torch.float32, torch.int8):
             blocks, ids, scales, keys, qg = ivf_case(torch, dtype, k, L, d, S, seed)
             ref = KS.ivf_score_slots_reference(blocks, keys, qg)
@@ -670,14 +801,18 @@ def ivf_kernel_phase(torch, base_lib):
             if err > IVF_ATOL or not torch.equal(i[~near], ri[~near]):
                 fail(f"ivf_score_topk differs from the plain version ({what}): value err {err}")
             recs["ivf_score_topk"]["max_abs_err"] = max(recs["ivf_score_topk"]["max_abs_err"], err)
+            inputs = (blocks, ids, scales, keys, qg, slot_pairs, torch.empty((P, L), device="cuda"))
+            err = check_pair_store(torch, inputs, k4, what)
+            recs["ivf_score_pairs"]["max_abs_err"] = max(recs["ivf_score_pairs"]["max_abs_err"], err)
             times = {}
             if name == "serve":
-                times = ivf_times(torch, (blocks, ids, scales, keys, qg), base_lib)
+                times = ivf_times(torch, inputs, base_lib)
                 if dtype == torch.bfloat16:  # the main path's block type
                     for kname, t in times.items():
                         recs[kname].update(**t)
-            log(f"K3/K4/K5 {what} S={S}: errs k3/k4/k5 = {[recs[n]['max_abs_err'] for n in recs]} times = {times}")
-            del blocks, ids, scales, keys, qg, ref, k3, k4, v, i, rv, ri, rv1
+            log(f"K3/K4/K5/pair store {what} S={S}: errs k3/k4/k5/pairs = {[recs[n]['max_abs_err'] for n in recs]} "
+                f"times = {times}")
+            del blocks, ids, scales, keys, qg, ref, k3, k4, v, i, rv, ri, rv1, inputs
     # exactly duplicated block rows tie in any summation order: the lower
     # column first, within a row tile and across the big block's row tiles
     for k, L, d, S, cols, k_out in ((4, 64, 40, 6, [3, 10, 30], 5), (6, 512, 300, 9, [5, 95, 96, 300, 401], 10)):
@@ -691,6 +826,7 @@ def ivf_kernel_phase(torch, base_lib):
         if not torch.equal(i[:, 0, : len(cols)], ids[2, cols].expand(S, len(cols))):
             fail(f"ivf_score_topk broke an exact tie away from the lower column (L={L}): {i[0, 0].tolist()}")
     torch.cuda.empty_cache()
+    recs["ivf_score_pairs"]["cell_shapes"] = pair_store_cells(torch)
     return recs
 
 
@@ -750,7 +886,7 @@ def reset_launch_counts():
     from granne_tpu_torch.ops.kernels.row_topk import row_top_k
 
     for fn in (gather_score_flat, gather_score, KS.ivf_score_slots, KS.ivf_score_slots_grouped, KS.ivf_score_topk,
-               row_top_k):
+               KS.ivf_score_pairs, row_top_k):
         fn.launches = 0
 
 
@@ -1072,7 +1208,8 @@ def timed_search(torch, fn):
 
 def ivf_path(torch, g, vecs, queries, gt):
     """The IVF and brute-force engines through the public API.  Returns the
-    K3/K4/K5 launch counts of this path."""
+    launch counts of K3-K5, the pair store and ``row_top_k`` in this path
+    (the search's K4 and K3 routes run the pair store)."""
     from granne_tpu_torch.index.ivf import _probe, slot_count, slot_groups
     from granne_tpu_torch.index.ivf_big import build_ivf_i8_chunked
     from granne_tpu_torch.ops import distance
@@ -1119,9 +1256,10 @@ def ivf_path(torch, g, vecs, queries, gt):
     ivf_profile(torch, ivf, queries, PATH_NPROBE)
     q = distance.normalize(torch.as_tensor(queries, device="cuda"))
     S = slot_count(ivf.k, len(queries), PATH_NPROBE, IVF_SLOT_CAP)
-    keys, qg = slot_groups(q, _probe(q, ivf.centroids, PATH_NPROBE), ivf.blocks, group_cap=IVF_SLOT_CAP,
-                           num_slots=S)[:2]
-    path_inputs = (ivf.blocks, ivf.block_ids, ivf.block_scales, keys, qg)
+    keys, qg, slot_pairs = slot_groups(q, _probe(q, ivf.centroids, PATH_NPROBE), ivf.blocks,
+                                       group_cap=IVF_SLOT_CAP, num_slots=S)[:3]
+    path_inputs = (ivf.blocks, ivf.block_ids, ivf.block_scales, keys, qg, slot_pairs,
+                   torch.full((len(queries) * PATH_NPROBE, ivf.cluster_cap), -torch.inf, device="cuda"))
     del ivf
 
     brute = g.BruteForceIndex.build(vecs, device="cuda")
@@ -1149,11 +1287,11 @@ def ivf_path(torch, g, vecs, queries, gt):
         if r_i8 < r_b8 - I8_SLACK:
             fail(f"int8 IVF recall {r_i8} is more than {I8_SLACK} below int8 brute force {r_b8}")
 
-    launches = {f.__name__: f.launches
-                for f in (KS.ivf_score_slots, KS.ivf_score_slots_grouped, KS.ivf_score_topk, row_top_k)}
+    launches = {f.__name__: f.launches for f in (KS.ivf_score_slots, KS.ivf_score_slots_grouped, KS.ivf_score_topk,
+                                                   KS.ivf_score_pairs, row_top_k)}
     log(f"IVF kernel launches in the IVF path: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in ("ivf_score_pairs", "ivf_score_topk", "row_top_k"):
+        if launches[name] <= 0:
             fail(f"the IVF path never launched {name}")
     return launches, path_inputs
 
@@ -1662,9 +1800,9 @@ def tiered_path(torch, g, vecs, queries, gt, card):
 
     def tiered_ids(run, nprobe):
         nonlocal launches
-        before = KS.ivf_score_slots_grouped.launches
+        before = KS.ivf_score_pairs.launches
         out = [i for i, _ in run(batches, K, nprobe=nprobe)]
-        launches += KS.ivf_score_slots_grouped.launches - before
+        launches += KS.ivf_score_pairs.launches - before
         return np.concatenate(out)
 
     qn = distance.normalize(torch.as_tensor(queries, device="cuda"))
@@ -1704,9 +1842,9 @@ def tiered_path(torch, g, vecs, queries, gt, card):
                       block_scales=host8.block_scales.cuda(), n_total=host8.n_total)
     w_ids, w_d = dev8.search_batch(queries, K, nprobe=I8_NPROBE)
     t8 = g.TieredIvf.from_ivf(host8, device="cuda")
-    before = KS.ivf_score_slots_grouped.launches
+    before = KS.ivf_score_pairs.launches
     got = list(t8.search_batches(batches, K, nprobe=I8_NPROBE))
-    launches += KS.ivf_score_slots_grouped.launches - before
+    launches += KS.ivf_score_pairs.launches - before
     g_ids, g_d = np.concatenate([i for i, _ in got]), np.concatenate([x for _, x in got])
     equal = np.array_equal(g_ids, w_ids.cpu().numpy()) and np.array_equal(g_d, w_d.cpu().numpy())
     log(f"tiered int8 (build_ivf_i8_chunked device_resident=False, {host8.k} blocks on the host): nprobe={I8_NPROBE} "
@@ -1714,9 +1852,9 @@ def tiered_path(torch, g, vecs, queries, gt, card):
         f"[{card}]")
     if not equal:
         fail("the tiered int8 search differs from the device-resident int8 index")
-    log(f"ivf_score_slots_grouped launches in the tiered path: {launches}")
+    log(f"ivf_score_pairs launches in the tiered path: {launches}")
     if launches <= 0:
-        fail("the tiered path never launched ivf_score_slots_grouped")
+        fail("the tiered path never launched ivf_score_pairs")
     return launches
 
 
@@ -1737,7 +1875,7 @@ def tiered_ids(index, queries, nprobe):
 def rank_measures(torch, group, queries, sharded, sharded8, tiered_s, sg):
     """A rank's QPS of each sharded route (a warm repeat over every query),
     the merge's milliseconds for one batch of candidates, and the launches
-    of K3-K5 in this rank."""
+    of K3-K5 and the pair store in this rank."""
     from granne_tpu_torch import all_gather_topk
     from granne_tpu_torch.ops.kernels import ivf_score as KS
 
@@ -1759,7 +1897,8 @@ def rank_measures(torch, group, queries, sharded, sharded8, tiered_s, sg):
         all_gather_topk(ids, d, K, group)
     torch.cuda.synchronize()
     merge_ms = (time.perf_counter() - t) / 10 * 1e3
-    launches = {f.__name__: f.launches for f in (KS.ivf_score_slots, KS.ivf_score_slots_grouped, KS.ivf_score_topk)}
+    launches = {f.__name__: f.launches
+                for f in (KS.ivf_score_slots, KS.ivf_score_slots_grouped, KS.ivf_score_topk, KS.ivf_score_pairs)}
     return {"qps": qps, "merge_ms": merge_ms, "launches": launches}
 
 
@@ -1846,7 +1985,7 @@ def world_of_four(group, vecs_file, out_dir, queries):
 def sharded_path(torch, g, vecs, queries, gt, card):
     """Step 15: a world of one through NCCL, then a world of four through
     gloo on the one card (see the module docstring).  Returns the launches
-    of K4 and K5 in the ranks."""
+    of the pair store and K5 in the ranks."""
     from granne_tpu_torch.index.ivf import read_metadata
 
     t0 = time.perf_counter()
@@ -1934,8 +2073,9 @@ def sharded_path(torch, g, vecs, queries, gt, card):
             fail(f"world of {SHARD_WORLD}: {msg}")
 
     launches = {name: one["launches"][name] + sum(out["launches"][name] for out in four)
-                for name in ("ivf_score_slots_grouped", "ivf_score_topk")}
-    log(f"K4/K5 launches in the sharded path's ranks: {launches}; step 15 wall {time.perf_counter() - t0} s [{card}]")
+                for name in ("ivf_score_pairs", "ivf_score_topk")}
+    log(f"pair store/K5 launches in the sharded path's ranks: {launches}; step 15 wall {time.perf_counter() - t0} s "
+        f"[{card}]")
     for name, count in launches.items():
         if count <= 0:
             fail(f"the sharded path never launched {name}")
@@ -2183,8 +2323,10 @@ def main() -> None:
               "row_topk.cu (nvcc)": row_topk.load_kernel,
               f"{os.path.relpath(codec_source(), REPO)} (g++)": load_codec}
     base_keys = {}
+    # an earlier ivf_score.cu may predate the pair store: its baseline is not timed
+    ivf_base_sigs = {fn: sig for fn, sig in ivf_score.SIGNATURES.items() if fn != "gt_ivf_score_pairs"}
     for kind, path, signatures in (("nbr_score", opts.baseline_nbr_score, nbr_score.SIGNATURES),
-                                   ("ivf_score", opts.baseline_ivf_score, ivf_score.SIGNATURES)):
+                                   ("ivf_score", opts.baseline_ivf_score, ivf_base_sigs)):
         if path:
             src = Path(path).resolve()
             base_keys[kind] = f"baseline {src} (nvcc)"
@@ -2229,7 +2371,8 @@ def main() -> None:
     ivf_launches, path_inputs = ivf_path(torch, g, vecs, queries, gt)
     no_jax("IVF path")
     path_times = ivf_times(torch, path_inputs, ivf_base_lib)
-    log(f"K3/K4/K5 on the IVF path's own slots (nprobe {PATH_NPROBE}, S={path_inputs[3].shape[0]}): {path_times}")
+    log(f"K3/K4/K5 and the pair store on the IVF path's own slots (nprobe {PATH_NPROBE}, "
+        f"S={path_inputs[3].shape[0]}): {path_times}")
     del path_inputs
     reorder_launches, reordered_paths, order = reorder_phase(torch, g, queries, gt, main_recalls, smi)
     no_jax("reorder phase")
@@ -2274,9 +2417,14 @@ def main() -> None:
         kernels.append({
             **record(name, "granne_tpu_torch/csrc/ivf_score.cu", f"granne_tpu/ops/pallas/ivf_score.py:{line}",
                      ivf_launches[name], ivf_recs[name]),
-            **({"tiered_path_launches": tiered_launches} if name == "ivf_score_slots_grouped" else {}),
             **({"sharded_path_launches": sharded_launches[name]} if name in sharded_launches else {}),
         })
+    kernels.append({
+        **record("ivf_score_pairs", "granne_tpu_torch/csrc/ivf_score.cu", None, ivf_launches["ivf_score_pairs"],
+                 ivf_recs["ivf_score_pairs"]),
+        "tiered_path_launches": tiered_launches, "sharded_path_launches": sharded_launches["ivf_score_pairs"],
+        "cell_shapes": ivf_recs["ivf_score_pairs"]["cell_shapes"],
+    })
     probe = topk_recs["probe"]
     kernels.append({
         "name": "row_top_k", "route": "cuda", "source": "granne_tpu_torch/csrc/row_topk.cu",

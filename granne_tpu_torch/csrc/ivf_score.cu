@@ -1,5 +1,6 @@
-// IVF slot scoring (K3, K4) and fused slot scoring + per-row top-k (K5),
-// one kernel body.
+// IVF slot scoring (K3, K4), the same scoring stored straight into each
+// query's rows of the merge (the pair store), and fused slot scoring +
+// per-row top-k (K5), one kernel body.
 //
 // Replaces the Pallas TPU kernels in granne_tpu/ops/pallas/ivf_score.py:
 //   K3 ivf_score_slots          (_kernel)          one slot per program
@@ -72,7 +73,25 @@
 //   so K3 and K4 agree bit for bit.
 // * Stores: a quad of lanes writes 32 contiguous bytes of a score row
 //   (float2 each when L is even).  K5 hands the same accumulators to its
-//   own epilogue (below).
+//   own epilogue (below), and so does the pair store.
+// * The pair store (gt_ivf_score_pairs, the search's K3/K4 route): each
+//   item's stage also takes the row tile's block_ids and block_scales, as
+//   K5's does, and the scores go to the merge's own [P, L] rows, one a
+//   (query, probed block) pair: query row q of slot s holds the pair p =
+//   slot_pairs[s, c0 + q] (read once an item), and its scores times the
+//   row's scale (one f32 multiply after the mma, as the plain version's
+//   `scores * scale`), -inf where the row's id is negative, go to
+//   out[p, row0 + l] with the same quad stores.  An empty place (p < 0)
+//   stores nothing, so a call writes only the rows of queries (at the
+//   serve shapes 28-30% of K4's), and the pairs no slot holds keep the
+//   caller's -inf fill.  A thread block skips its items past the last
+//   query tile that holds a pair (group_pairs leaves the unused slots
+//   last, so whole blocks at the grid's end exit at once), and a warp
+//   skips the second m16 tile's ldmatrix and mma where none of queries
+//   16-31 holds a pair.  A row segment is contiguous, so the scattered
+//   rows cost no more DRAM sectors than K4's, and no pass over every
+//   slot's [cap, L] f32 scores follows the kernel (a scale, a mask, a row
+//   gather and a scatter to the pairs would each read and write them).
 // * A lean, capture-safe launch, as in nbr_score.cu: the device's limits
 //   are read and every kernel's shared-memory limit set once per device,
 //   cudaSetDevice only when the current device differs, no allocation.
@@ -155,6 +174,7 @@ constexpr int kMaxJ = kMaxLT / kWarp;           // K5: a row tile's scores of on
 constexpr int kScores = 0;      // K3/K4: the raw scores
 constexpr int kTopkRegs = 1;    // K5 with K' <= kRegK: each row's running top-K' in registers, an entry a lane
 constexpr int kTopkGlobal = 2;  // K5 with K' > kRegK: each row's running top-K' in its own output row
+constexpr int kPairs = 3;       // the pair store: scaled, masked scores in each query's row of the merge
 
 __host__ __device__ constexpr long long pad_to(long long v, long long to) { return (v + to - 1) / to * to; }
 
@@ -166,10 +186,11 @@ struct SlotArgs {
   int S, G;
   const unsigned char* qg;  // bf16 [S, cap, d]
   int cap;
-  float* out;  // K3/K4: f32 [S, cap, L]
-  // K5 (kp > 0)
+  float* out;  // K3/K4: f32 [S, cap, L]; the pair store: f32 [P, L]
+  // K5 (kp > 0) and the pair store (slot_pairs set)
   const int32_t* block_ids;   // [k, L], -1 masks a row
   const float* block_scales;  // [k, L]
+  const int32_t* slot_pairs;  // the pair store: [S, cap], the out row of each place, -1 empty
   int kp, k_out;              // K' = min(k_out, L) kept of each query row; k_out columns written
   float* out_v;               // f32 [S, cap, k_out]
   int32_t* out_i;             // int32 [S, cap, k_out]
@@ -179,7 +200,7 @@ struct SlotArgs {
   int nbuf;        // stages (1 or 2)
   int blk_area;    // bytes of a stage that take the block tile's span
   int qry_area;    // bytes of a stage that take the query tile's span
-  int col_area;    // K5: bytes of a stage for each of the tile's ids and scales; 0 for K3/K4
+  int col_area;    // K5, pair store: bytes of a stage for each of the tile's ids and scales; 0 for K3/K4
   int sp;          // K5: floats between two rows of the score tile (8 mod 32); 0 for K3/K4
   int bc_area;     // bytes from the converted block tile to the converted query tile
   int stage_bytes; // blk_area + qry_area + 2 col_area
@@ -286,10 +307,14 @@ __device__ __forceinline__ long long clamp_key(long long key, long long k) {
   return key < 0 ? 0 : (key >= k ? k - 1 : key);
 }
 
+// Whether a stage also carries the row tile's ids and scales (K5 and the
+// pair store).
+__host__ __device__ __forceinline__ bool has_cols(const SlotArgs& a) { return a.kp > 0 || a.slot_pairs != nullptr; }
+
 // One thread: start the copies of item `m` into `stage` (the block row tile,
-// with the first row tile its query tile, and for K5 the tile's ids and
-// scales) and arm `bar` with their bytes.  The plain tail loads come first,
-// so the stage is whole once the bulk bytes have landed.
+// with the first row tile its query tile, and for K5 and the pair store the
+// tile's ids and scales) and arm `bar` with their bytes.  The plain tail
+// loads come first, so the stage is whole once the bulk bytes have landed.
 template <typename T>
 __device__ void issue_item(const SlotArgs& a, const Item& m, long long key, unsigned char* stage, uint64_t* bar) {
   constexpr long long es = sizeof(T);
@@ -304,7 +329,7 @@ __device__ void issue_item(const SlotArgs& a, const Item& m, long long key, unsi
     q = span_of(a.qg, static_cast<long long>(a.S) * a.cap * a.d * 2, (static_cast<long long>(m.s) * a.cap + c0) * a.d * 2,
                 static_cast<long long>(nqr) * a.d * 2);
   }
-  if (a.kp > 0) {
+  if (has_cols(a)) {
     const long long total = a.k_blocks * a.L * 4, start = (key * a.L + row0) * 4;
     ids = span_of(reinterpret_cast<const unsigned char*>(a.block_ids), total, start, rows * 4LL);
     scl = span_of(reinterpret_cast<const unsigned char*>(a.block_scales), total, start, rows * 4LL);
@@ -385,8 +410,10 @@ constexpr int kNT = kUnit / 8;  // n8 tiles a unit, two an ldmatrix
 // converted block rows from n0 at B (`rows` live), into acc: two m16 tiles
 // of queries by kNT n8 tiles of rows, k steps of 16 in order.  Rows and
 // queries past the live ones read the last live one and are not stored.
+// Without `upper` the second m16 tile (queries 16-31) is not scored: its
+// accumulators stay 0 and must not be stored.
 __device__ __forceinline__ void mma_unit(const uint16_t* A, int nqr, const uint16_t* B, int n0, int rows, int d, int dp,
-                                         float (&acc)[2][kNT][4]) {
+                                         float (&acc)[2][kNT][4], bool upper = true) {
   const int lane = threadIdx.x % kWarp;
   const int kend = (d + 15) / 16 * 16;
   // ldmatrix addressing: A matrices (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15);
@@ -407,12 +434,13 @@ __device__ __forceinline__ void mma_unit(const uint16_t* A, int nqr, const uint1
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
   for (int k = 0; k < kend; k += 16) {
     uint32_t af[2][4], bf[kNT / 2][4];
-#pragma unroll
-    for (int t = 0; t < 2; ++t) ldmatrix_x4(af[t], pa[t] + k);
+    ldmatrix_x4(af[0], pa[0] + k);
+    if (upper) ldmatrix_x4(af[1], pa[1] + k);
 #pragma unroll
     for (int t = 0; t < kNT / 2; ++t) ldmatrix_x4(bf[t], pb[t] + k);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
+      if (mt == 1 && !upper) break;
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) mma_bf16(acc[mt][nt], af[mt], bf[nt / 2][(nt % 2) * 2], bf[nt / 2][(nt % 2) * 2 + 1]);
     }
@@ -482,6 +510,50 @@ __device__ __forceinline__ void store_topk_unit(const float (&acc)[2][kNT][4], i
           *reinterpret_cast<float2*>(sc + q * sp + l) = make_float2(v0, v1);
         } else if (l < rows) {
           sc[q * sp + l] = v0;
+        }
+      }
+    }
+  }
+}
+
+// One warp (the pair store): a unit's accumulators times the row's scale,
+// -inf where the row's id is negative, into out[pair[i] * L + row0 + l] for
+// each of the lane's four query rows i (16 mt + 8 h + g) whose place holds
+// a pair; a quad of lanes writes 32 contiguous bytes of a row, as
+// store_unit does.  __fmul_rn keeps the multiply a multiply (no FMA).
+__device__ __forceinline__ void store_pairs_unit(const float (&acc)[2][kNT][4], const int (&pair)[4], int n0,
+                                                 int rows, float* out, int L, int row0, bool pairs,
+                                                 const float* scales, const int32_t* ids) {
+  const int lane = threadIdx.x % kWarp;
+  const int c = lane & 3;
+  float scl[kNT][2];
+  bool live[kNT][2];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int l = n0 + 8 * nt + 2 * c + e;
+      live[nt][e] = l < rows && ids[l] >= 0;
+      scl[nt][e] = l < rows ? scales[l] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = pair[2 * mt + h];
+      if (p < 0) continue;
+      float* orow = out + static_cast<long long>(p) * L + row0;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int l = n0 + 8 * nt + 2 * c;
+        const float v0 = live[nt][0] ? __fmul_rn(acc[mt][nt][2 * h], scl[nt][0]) : neg_inf();
+        const float v1 = live[nt][1] ? __fmul_rn(acc[mt][nt][2 * h + 1], scl[nt][1]) : neg_inf();
+        if (pairs && l + 1 < rows) {
+          *reinterpret_cast<float2*>(orow + l) = make_float2(v0, v1);
+        } else {
+          if (l < rows) orow[l] = v0;
+          if (l + 1 < rows) orow[l + 1] = v1;
         }
       }
     }
@@ -673,7 +745,8 @@ __device__ __noinline__ void merge_global(const float* srow, const int32_t* ids,
   }
 }
 
-// K3/K4 (kOut = kScores) and K5 (kTopkRegs, kTopkGlobal): one body.
+// K3/K4 (kOut = kScores), the pair store (kPairs) and K5 (kTopkRegs,
+// kTopkGlobal): one body.
 template <typename T, bool kVec, int kOut>
 __global__ void __launch_bounds__(kSlotThreads) slot_score_kernel(const __grid_constant__ SlotArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -683,15 +756,28 @@ __global__ void __launch_bounds__(kSlotThreads) slot_score_kernel(const __grid_c
   uint16_t* Bc = reinterpret_cast<uint16_t*>(stages + a.nbuf * a.stage_bytes);  // [LT, dp]
   float* sc = reinterpret_cast<float*>(Bc);  // K5: [q_rows, sp], over Bc once the tile is scored
   uint16_t* Ac = reinterpret_cast<uint16_t*>(reinterpret_cast<unsigned char*>(Bc) + a.bc_area);  // [q_rows, dp]
-  float* colS = reinterpret_cast<float*>(Ac + q_rows * a.dp);  // K5: [LT] scales
-  int32_t* colI = reinterpret_cast<int32_t*>(colS + a.LT);     // K5: [LT] ids
+  float* colS = reinterpret_cast<float*>(Ac + q_rows * a.dp);  // K5, pair store: [LT] scales
+  int32_t* colI = reinterpret_cast<int32_t*>(colS + a.LT);     // K5, pair store: [LT] ids
 
   const int s0 = blockIdx.x * a.G;
   const int nq = (a.cap + kQT - 1) / kQT;
   const int nl = (a.L + a.LT - 1) / a.LT;
-  const int items = min(a.G, a.S - s0) * nq * nl;
+  int items = min(a.G, a.S - s0) * nq * nl;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const bool issuer = threadIdx.x == 0;
+  if constexpr (kOut == kPairs) {  // the items after the last query tile that holds a pair store nothing: skip them
+    int* live_end = reinterpret_cast<int*>(smem + kBarBytes / 2);  // past the mbarriers
+    if (issuer) *live_end = 0;
+    __syncthreads();
+    int last = 0;  // nondecreasing in i: one atomic a thread
+    for (int i = threadIdx.x; i < min(a.G, a.S - s0) * a.cap; i += kSlotThreads) {
+      const int p = a.slot_pairs[static_cast<long long>(s0) * a.cap + i];
+      if (p >= 0) last = i / a.cap * nq + i % a.cap / kQT + 1;
+    }
+    if (last) atomicMax(live_end, last);
+    __syncthreads();
+    items = *live_end * nl;
+  }
   float lv[kRowsPerWarp];  // kTopkRegs: entry `lane` of the top-K' of query rows warp + 8 r (value, column)
   int32_t lc[kRowsPerWarp];
   if (issuer) {
@@ -742,6 +828,20 @@ __global__ void __launch_bounds__(kSlotThreads) slot_score_kernel(const __grid_c
     if constexpr (kOut == kScores) {
       score_tile(Ac, nqr, Bc, rows, a.d, a.dp, a.out + (static_cast<long long>(m.s) * a.cap + c0) * a.L + row0, a.L,
                  a.L % 2 == 0 && a.LT % 2 == 0);
+    } else if constexpr (kOut == kPairs) {
+      const int g = lane >> 2;
+      int pair[4];  // the pairs of the lane's query rows 16 mt + 8 h + g, -1 where none
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = 16 * (i / 2) + 8 * (i % 2) + g;
+        pair[i] = q < nqr ? a.slot_pairs[static_cast<long long>(m.s) * a.cap + c0 + q] : -1;
+      }
+      const bool upper = __any_sync(kAll, pair[2] >= 0 || pair[3] >= 0);  // a pair among queries 16-31
+      for (int n0 = warp * kUnit; n0 < rows; n0 += kSlotWarps * kUnit) {
+        float acc[2][kNT][4];
+        mma_unit(Ac, nqr, Bc, n0, rows, a.d, a.dp, acc, upper);
+        store_pairs_unit(acc, pair, n0, rows, a.out, a.L, row0, a.L % 2 == 0 && a.LT % 2 == 0, colS, colI);
+      }
     } else {
       float acc[2][kNT][4];  // rows <= kMaxLT: a warp scores at most one unit
       const int n0 = warp * kUnit;
@@ -825,6 +925,7 @@ DeviceLimits read_limits(int device) {
   if (!err) err = allow_kind<kScores>(l.smem_block);
   if (!err) err = allow_kind<kTopkRegs>(l.smem_block);
   if (!err) err = allow_kind<kTopkGlobal>(l.smem_block);
+  if (!err) err = allow_kind<kPairs>(l.smem_block);
   l.err = err;
   return l;
 }
@@ -841,11 +942,11 @@ cudaError_t use_device(int device, const DeviceLimits** limits) {
   return g_limits[device].err;
 }
 
-// Bytes of a stage's column span (K5's ids or scales), floats between two
+// Bytes of a stage's column span (the ids or scales), floats between two
 // rows of K5's score tile (8 mod 32, and room for a row's 32 candidates
 // and their columns), and bytes of the converted block tile or, for K5, the
 // score tile over it, at row tile LT.
-long long col_area(const SlotArgs& a, int LT) { return a.kp > 0 ? pad_to(LT * 4LL + kSpanSlack, 16) : 0; }
+long long col_area(const SlotArgs& a, int LT) { return has_cols(a) ? pad_to(LT * 4LL + kSpanSlack, 16) : 0; }
 int score_pitch(const SlotArgs& a, int LT) {
   return a.kp > 0 ? static_cast<int>((LT > 2 * kWarp ? pad_to(LT, kWarp) : 2 * kWarp) + 8) : 0;
 }
@@ -856,14 +957,14 @@ long long bc_area(const SlotArgs& a, int LT) {
 }
 
 // Shared memory of a block at row tile LT: the barriers, the stages, the
-// converted tiles (for K5 the score tile over the block's), and for K5 the
-// tile's scales and ids.
+// converted tiles (for K5 the score tile over the block's), and for K5 and
+// the pair store the tile's scales and ids.
 long long slot_smem(const SlotArgs& a, int esize, int LT, int nbuf) {
   const long long q_rows = a.cap < kQT ? a.cap : kQT;
   const long long blk = pad_to(static_cast<long long>(LT) * a.d * esize + kSpanSlack, 16);
   const long long qry = pad_to(q_rows * a.d * 2 + kSpanSlack, 16);
   return kBarBytes + nbuf * (blk + qry + 2 * col_area(a, LT)) + bc_area(a, LT) + q_rows * a.dp * 2 +
-         (a.kp > 0 ? LT * 8LL : 0);
+         (has_cols(a) ? LT * 8LL : 0);
 }
 
 // The row tile, stages and shared memory of a call, into `a`.  The tile is
@@ -936,6 +1037,7 @@ int launch_slots(SlotArgs a, int dtype, int device, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec = a.d % 4 == 0;  // 4 lanes of a row are one aligned load
   const unsigned grid = static_cast<unsigned>((a.S + a.G - 1) / a.G);
+  if (a.slot_pairs) return static_cast<int>(launch_kind<kPairs>(a, dtype, vec, grid, smem, stream));
   if (a.kp == 0) return static_cast<int>(launch_kind<kScores>(a, dtype, vec, grid, smem, stream));
   if (a.kp <= kRegK) return static_cast<int>(launch_kind<kTopkRegs>(a, dtype, vec, grid, smem, stream));
   return static_cast<int>(launch_kind<kTopkGlobal>(a, dtype, vec, grid, smem, stream));
@@ -958,7 +1060,7 @@ SlotArgs slot_args(const void* blocks, long long k_blocks, int L, int d, const v
 
 }  // namespace
 
-// Block dtype codes: 0 = bf16, 1 = f32, 2 = int8.  Both functions launch on
+// Block dtype codes: 0 = bf16, 1 = f32, 2 = int8.  Every function launches on
 // `stream` (the caller's current CUDA stream) and return cudaGetLastError()
 // as an int: 0 when the launch was accepted.  `blocks`, `qg`, `block_ids`
 // and `block_scales` start on 16-byte boundaries.
@@ -967,6 +1069,24 @@ extern "C" int gt_ivf_score_slots(const void* blocks, int dtype, long long k_blo
                                   const void* slot_keys, int S, const void* qg, int cap, int group,
                                   void* out, int device, void* stream) {
   SlotArgs a = slot_args(blocks, k_blocks, L, d, slot_keys, S, qg, cap, group);
+  a.out = static_cast<float*>(out);
+  return launch_slots(a, dtype, device, static_cast<cudaStream_t>(stream));
+}
+
+// The pair store: K4's scores (K3's with group 1) times block_scales, -inf
+// where block_ids < 0, of each place (s, c) with slot_pairs[s, c] >= 0 into
+// row slot_pairs[s, c] of out (f32 [P, L]; every such value below P); an
+// empty place (-1) writes nothing and every other row is left as it is.  A
+// pair held by two places is written by both.  `out` starts on an 8-byte
+// boundary.
+extern "C" int gt_ivf_score_pairs(const void* blocks, int dtype, long long k_blocks, int L, int d,
+                                  const void* block_ids, const void* block_scales,
+                                  const void* slot_keys, int S, const void* qg, int cap, int group,
+                                  const void* slot_pairs, void* out, int device, void* stream) {
+  SlotArgs a = slot_args(blocks, k_blocks, L, d, slot_keys, S, qg, cap, group);
+  a.block_ids = static_cast<const int32_t*>(block_ids);
+  a.block_scales = static_cast<const float*>(block_scales);
+  a.slot_pairs = static_cast<const int32_t*>(slot_pairs);
   a.out = static_cast<float*>(out);
   return launch_slots(a, dtype, device, static_cast<cudaStream_t>(stream));
 }

@@ -8,19 +8,30 @@ Elements are permuted cluster by cluster into a padded dense tensor
                                                       the lower block, as
                                                       ``lax.top_k`` does)
     3. group (query, block) pairs into slots and score every slot's block
-       against its query group                      (K4, or K3 with
-                                                      ``slot_group=1``, or
+       against its query group                      (the pair store: K4,
+                                                      or K3 with
+                                                      ``slot_group=1``; or
                                                       K5 with ``fused_topk``)
     4. merge the per-block candidates into each query's top-k
+
+The pair store (``ops/kernels/ivf_score.py::ivf_score_pairs``) writes each
+query's scaled, masked score rows straight into the merge's [B * nprobe,
+L] buffer, which the merge reads as [B, nprobe * L]: nothing runs between
+the kernel and the merge's top-k, whose k winners alone look up their ids.
+K5's route keeps its own epilogue and scatter.
 
 Steps 1-2, 3's grouping, 3's scoring and 4 run in the ``utils.trace``
 spans ``ivf/probe``, ``ivf/group``, ``ivf/score`` and ``ivf/merge``, and
 ``IvfIndex.search_batch`` in ``ivf/search``; inside ``ivf/score``, the
-span ``ivf/epilogue`` holds what follows the kernel (the scale, the mask
-and the row gather).  While a profiler records, the grouping counts the
-slots scored (``ivf/slots``), the distinct blocks among them
-(``ivf/blocks``), the (query, block) pairs (``ivf/pairs``) and the query
-rows of the slots (``ivf/slot_rows``, slots times the group cap).  The
+span ``ivf/epilogue`` holds what of the epilogue runs outside the kernel:
+on the pair store's route the -inf fill of the pair rows (before the
+kernel: the rows of the pairs that no slot holds stay -inf), on K5's the
+mask of empty places and the row gather.  While a profiler records, the
+grouping counts the slots scored (``ivf/slots``), the distinct blocks
+among them (``ivf/blocks``), the (query, block) pairs (``ivf/pairs``), the
+query rows of the slots (``ivf/slot_rows``, slots times the group cap) and
+the pairs that no slot holds (``ivf/dropped_pairs``: past the last of
+``num_slots``, so -inf rows in the merge).  The
 probe's, the merge's and the ungrouped search's top-k go through
 ``ranked``: the card's row top-k kernel for k up to ``K_MAX``, the
 whole-row stable sort past it, the rows of each counted
@@ -494,57 +505,66 @@ def search_probed(
     L = blocks.shape[1]
     S = num_slots
     P = B * nprobe
-    # per-slot block + query group; an unused slot is scored and masked below
+    # per-slot block + query group; an unused slot is scored and stores nothing
     with trace.span("ivf/group"):
         safe_keys, qg, slot_pairs, item_slot, item_pos, sorted_pairs = slot_groups(
             q, probes, blocks, group_cap=group_cap, num_slots=S
         )
-        lin = torch.where(item_slot >= 0, item_slot * group_cap + item_pos, 0).long()
-        dropped = (item_slot < 0)[:, None]
-        order = sorted_pairs.long()
         if trace.recording():
             trace.count("ivf/slots", S)
             trace.count("ivf/blocks", _blocks_scored(safe_keys, slot_pairs))
             trace.count("ivf/pairs", P)
             trace.count("ivf/slot_rows", S * group_cap)
+            trace.count("ivf/dropped_pairs", (item_slot < 0).sum())
 
+    if use_pallas_topk:
+        return _merge_slot_topk(
+            blocks, block_ids, block_scales, q, safe_keys, qg, slot_pairs, item_slot, item_pos, sorted_pairs,
+            B=B, nprobe=nprobe, k_out=k_out, group_cap=group_cap,
+        )
     with trace.span("ivf/score"):
-        if use_pallas_topk:
-            # fused score + per-slot top-k: the [S, cap, L] scores stay on chip,
-            # and the merge shrinks from width L to width k_out; the union of
-            # per-slot top-k_out holds the global top-k_out, so it stays exact
-            vals, vids = ivf_score.ivf_score_topk(blocks, block_ids, block_scales, safe_keys, qg, k_out=k_out)
-            with trace.span("ivf/epilogue"):
-                occupied = (slot_pairs >= 0)[:, :, None]
-                vals = torch.where(occupied, vals, -torch.inf)
-                vids = torch.where(occupied, vids, -1)
-                Kp = vals.shape[2]
-                rows = torch.where(dropped, -torch.inf, vals.reshape(S * group_cap, Kp)[lin])
-                id_rows = torch.where(dropped, -1, vids.reshape(S * group_cap, Kp)[lin])
-            width = Kp
-        else:
-            if slot_group == 1:
-                scores = ivf_score.ivf_score_slots(blocks, safe_keys, qg)
-            else:
-                scores = ivf_score.ivf_score_slots_grouped(blocks, safe_keys, qg, group=slot_group)
-            with trace.span("ivf/epilogue"):
-                keys = safe_keys.long()
-                ids_g = block_ids[keys]  # [S, L]
-                scores = scores * block_scales[keys][:, None, :]
-                valid = (slot_pairs >= 0)[:, :, None] & (ids_g >= 0)[:, None, :]
-                scores = torch.where(valid, scores, -torch.inf)
-                # each (slot, pos) score row back to its original pair
-                rows = torch.where(dropped, -torch.inf, scores.reshape(S * group_cap, L)[lin])
-                id_rows = torch.where(dropped, -1, ids_g[torch.clamp_min(item_slot, 0).long()])
-            width = L
+        with trace.span("ivf/epilogue"):
+            rows = torch.full((P, L), -torch.inf, dtype=torch.float32, device=q.device)
+        # each query's score rows, scaled and masked, straight into its pairs' rows
+        ivf_score.ivf_score_pairs(blocks, block_ids, block_scales, safe_keys, qg, slot_pairs, rows, group=slot_group)
 
     with trace.span("ivf/merge"):
-        out_scores = torch.full((P, width), -torch.inf, dtype=torch.float32, device=q.device)
-        out_ids = torch.full((P, width), -1, dtype=torch.int32, device=q.device)
+        v, pos = ranked(rows.reshape(B, nprobe * L), k_out)
+        blk = probes.gather(1, pos // L).long().clamp(0, blocks.shape[0] - 1)
+        ids = torch.where(v == -torch.inf, -1, block_ids[blk, pos % L])  # -1 at padding and unheld pairs
+        return ids, torch.clamp_min(1.0 - v, 0.0)
+
+
+def _merge_slot_topk(
+    blocks, block_ids, block_scales, q, safe_keys, qg, slot_pairs, item_slot, item_pos, sorted_pairs, *,
+    B, nprobe, k_out, group_cap,
+):
+    """``search_probed``'s fused route: K5's per-(slot, place) top-k_out,
+    each place's lists gathered back to its pair and the merge over
+    [B, nprobe * k_out].  The [S, cap, L] scores stay on chip; the union of
+    the per-slot top-k_out holds the global top-k_out, so it stays exact."""
+    S = safe_keys.shape[0]
+    P = B * nprobe
+    with trace.span("ivf/score"):
+        vals, vids = ivf_score.ivf_score_topk(blocks, block_ids, block_scales, safe_keys, qg, k_out=k_out)
+        with trace.span("ivf/epilogue"):
+            lin = torch.where(item_slot >= 0, item_slot * group_cap + item_pos, 0).long()
+            dropped = (item_slot < 0)[:, None]
+            occupied = (slot_pairs >= 0)[:, :, None]
+            vals = torch.where(occupied, vals, -torch.inf)
+            vids = torch.where(occupied, vids, -1)
+            Kp = vals.shape[2]
+            rows = torch.where(dropped, -torch.inf, vals.reshape(S * group_cap, Kp)[lin])
+            id_rows = torch.where(dropped, -1, vids.reshape(S * group_cap, Kp)[lin])
+
+    with trace.span("ivf/merge"):
+        order = sorted_pairs.long()
+        out_scores = torch.full((P, Kp), -torch.inf, dtype=torch.float32, device=q.device)
+        out_ids = torch.full((P, Kp), -1, dtype=torch.int32, device=q.device)
         out_scores[order] = rows  # sorted_pairs is a permutation of the pairs
         out_ids[order] = id_rows
-        v, pos = ranked(out_scores.reshape(B, nprobe * width), k_out)
-        ids = torch.gather(out_ids.reshape(B, nprobe * width), 1, pos)
+        v, pos = ranked(out_scores.reshape(B, nprobe * Kp), k_out)
+        ids = torch.gather(out_ids.reshape(B, nprobe * Kp), 1, pos)
         return ids, torch.clamp_min(1.0 - v, 0.0)
 
 

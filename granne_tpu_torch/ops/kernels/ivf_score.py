@@ -1,4 +1,5 @@
-"""K3, K4, K5: IVF slot scoring and fused scoring + per-row top-k.
+"""K3, K4, K5: IVF slot scoring and fused scoring + per-row top-k, and the
+pair store the grouped search runs.
 
 Replace the Pallas TPU kernels of ``granne_tpu/ops/pallas/ivf_score.py``:
 ``ivf_score_slots`` (K3), ``ivf_score_slots_grouped`` (K4) and
@@ -8,6 +9,16 @@ kernel on the H100 and how the design answers that): K3 and K4 are one
 tensor-core body fed by bulk copies, with the slot group G as a parameter
 (G = 1 for K3); K5 is the same body with a running per-row top-k in its
 epilogue, one slot per thread block.
+
+``ivf_score_pairs`` is a third output kind of that body, with no Pallas
+counterpart: K4's scores (K3's at ``group`` 1), each times its block row's
+scale and -inf where the row's id is negative, written straight into the
+merge's [pairs, L] rows, the row of slot ``s``'s place ``c`` being
+``slot_pairs[s, c]``; empty places write nothing, and every other row of
+the caller's buffer keeps what it held (``index/ivf.py::search_probed``
+fills it with -inf).  Its plain version is K3/K4's followed by the scale,
+the mask and the scatter of each place's row to its pair; the kernel gives
+the same bits (the scale is one f32 multiply after the sum).
 
 Unlike the Pallas kernels, blocks may be bf16, f32 or int8 for every one of
 them (each element is rounded to bf16 as the JAX einsum does), any ``d``
@@ -19,8 +30,9 @@ CPU tensors and the kernel for CUDA tensors; for a CUDA tensor it launches
 the kernel or raises.  ``<function>.launches`` counts kernel launches.
 
 A launch is capture-safe: the library is loaded once per process, the
-outputs come from ``torch.empty`` (K5 writes every output column), and the kernel
-goes to ``torch.cuda.current_stream()`` with no host synchronisation.
+outputs come from ``torch.empty`` (K5 writes every output column) or are
+the caller's (the pair store), and the kernel goes to
+``torch.cuda.current_stream()`` with no host synchronisation.
 """
 
 from __future__ import annotations
@@ -51,6 +63,16 @@ SIGNATURES = {
             _P, _P,  # block_ids, block_scales
             _P, _I, _P, _I, _I,  # slot_keys, S, qg, cap, group
             _I, _I, _P, _P,  # kp, k_out, out_v, out_i
+            _I, _P,  # device, stream
+        ],
+    ),
+    "gt_ivf_score_pairs": (
+        _I,
+        [
+            _P, _I, _LL, _I, _I,  # blocks, dtype, k, L, d
+            _P, _P,  # block_ids, block_scales
+            _P, _I, _P, _I, _I,  # slot_keys, S, qg, cap, group
+            _P, _P,  # slot_pairs, out
             _I, _P,  # device, stream
         ],
     ),
@@ -180,6 +202,78 @@ def ivf_score_slots_grouped(blocks, slot_keys, qg, *, group: int = 8):
     return out
 
 
+def _check_pairs(blocks, slot_keys, qg, slot_pairs, out) -> None:
+    S, cap = qg.shape[:2]
+    if slot_pairs.shape != (S, cap) or slot_pairs.dtype != torch.int32 or not slot_pairs.is_contiguous():
+        raise ValueError(
+            f"slot_pairs must be contiguous int32[{S}, {cap}], got {slot_pairs.dtype}{tuple(slot_pairs.shape)}"
+        )
+    L = blocks.shape[1]
+    if out.ndim != 2 or out.shape[1] != L or out.dtype != torch.float32 or not out.is_contiguous():
+        raise ValueError(f"out must be contiguous f32[P, {L}], got {out.dtype}{tuple(out.shape)}")
+    if not (blocks.device == slot_pairs.device == out.device):
+        raise ValueError("blocks, slot_pairs and out on different devices")
+
+
+def ivf_score_pairs_reference(blocks, block_ids, block_scales, slot_keys, qg, slot_pairs, out):
+    """Plain PyTorch version of the pair store: K3/K4's scores times each
+    slot's block row scales, -inf where the block's id is negative, and each
+    place's row written to ``out[slot_pairs[s, c]]`` where that is not -1;
+    ``out`` (f32 [P, L]) is returned.  No host synchronisation, so a CUDA
+    graph can capture it: the empty places' rows go to a spare row past
+    ``out``'s."""
+    keys = slot_keys.long().clamp(0, blocks.shape[0] - 1)
+    scores = ivf_score_slots_reference(blocks, slot_keys, qg) * block_scales[keys][:, None, :]
+    scores = torch.where((block_ids[keys] >= 0)[:, None, :], scores, -torch.inf)
+    P, L = out.shape
+    rows = torch.cat([out, out.new_empty((1, L))])
+    rows.index_copy_(0, torch.where(slot_pairs >= 0, slot_pairs, P).reshape(-1).long(), scores.reshape(-1, L))
+    return out.copy_(rows[:P])
+
+
+def launch_pairs(lib, blocks, block_ids, block_scales, slot_keys, qg, slot_pairs, out, group: int):
+    """The pair store from ``lib`` on checked CUDA tensors, into ``out``,
+    uncounted."""
+    k, L, d = blocks.shape
+    S, cap, _ = qg.shape
+    if S == 0 or cap == 0 or L == 0 or out.shape[0] == 0:
+        return out
+    _aligned(blocks, qg, block_ids, block_scales)
+    if out.data_ptr() % 8:  # float2 stores
+        raise ValueError("out must start on an 8-byte boundary")
+    stream = torch.cuda.current_stream(blocks.device)
+    err = lib.gt_ivf_score_pairs(
+        blocks.data_ptr(), _DTYPE_CODES[blocks.dtype], k, L, d,
+        block_ids.data_ptr(), block_scales.data_ptr(),
+        slot_keys.data_ptr(), S, qg.data_ptr(), cap, group,
+        slot_pairs.data_ptr(), out.data_ptr(), blocks.device.index, stream.cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"ivf_score_pairs launch failed: {lib.gt_ivf_cuda_error_string(err).decode()}")
+    return out
+
+
+def ivf_score_pairs(blocks, block_ids, block_scales, slot_keys, qg, slot_pairs, out, *, group: int = 8):
+    """The pair store: K4's scores (``group`` slots per thread block; K3's
+    at 1) times ``block_scales``, -inf where ``block_ids < 0``, each
+    place's row written into ``out`` (f32 [P, L]) at row ``slot_pairs[s,
+    c]`` (int32 [S, cap]; -1 marks an empty place, every other value is
+    below P).  Every other row of ``out`` keeps what it held; a pair held
+    by two places is written by both.  On the card ``out`` starts on an
+    8-byte boundary.  Returns ``out``.
+    """
+    _check(blocks, slot_keys, qg)
+    _check_cols(blocks, block_ids, block_scales)
+    _check_pairs(blocks, slot_keys, qg, slot_pairs, out)
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
+    if blocks.device.type == "cpu":
+        return ivf_score_pairs_reference(blocks, block_ids, block_scales, slot_keys, qg, slot_pairs, out)
+    launch_pairs(load_kernel(), blocks, block_ids, block_scales, slot_keys, qg, slot_pairs, out, group)
+    ivf_score_pairs.launches += 1
+    return out
+
+
 def launch_topk(lib, blocks, block_ids, block_scales, slot_keys, qg, k_out: int, *, prefill: bool = False):
     """K5 from ``lib`` on checked CUDA tensors: (vals, ids), uncounted.
     ``prefill`` fills the outputs with (-inf, -1) first, as a library that
@@ -233,3 +327,4 @@ def ivf_score_topk(blocks, block_ids, block_scales, slot_keys, qg, *, k_out: int
 ivf_score_slots.launches = 0
 ivf_score_slots_grouped.launches = 0
 ivf_score_topk.launches = 0
+ivf_score_pairs.launches = 0

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import granne_tpu_torch as g
+from composed_epilogue import composed_pair_rows
 from granne_tpu_torch.index.granne import Granne
 from granne_tpu_torch.ops import distance
 from granne_tpu_torch.ops.kernels import ivf_score as K
@@ -354,9 +355,10 @@ def test_ivf_topk_launches_capture_in_a_cuda_graph(cuda):
 
 
 def test_ivf_search_on_card_matches_cpu(cuda):
-    """The same index searched on the card (K4, K3, K5) and on the CPU
-    (plain versions): ids overlap >= 0.99, and each route launched its kernel
-    once (op by op, ``graph=False``: a graph's replay is not counted)."""
+    """The same index searched on the card (the pair store at G 8 and 1, K5)
+    and on the CPU (plain versions): ids overlap >= 0.99, and each route
+    launched its kernel once (op by op, ``graph=False``: a graph's replay is
+    not counted)."""
     rng = np.random.default_rng(0)
     centers = rng.standard_normal((40, 48)).astype(np.float32)
     x = (centers[rng.integers(0, 40, 4000)] + 0.35 * rng.standard_normal((4000, 48))).astype(np.float32)
@@ -368,8 +370,8 @@ def test_ivf_search_on_card_matches_cpu(cuda):
     q = x[:300]
     want = cpu.search_batch(q, 10, nprobe=6)[0].numpy()
     routes = [
-        (dict(), K.ivf_score_slots_grouped),
-        (dict(slot_group=1), K.ivf_score_slots),
+        (dict(), K.ivf_score_pairs),
+        (dict(slot_group=1), K.ivf_score_pairs),
         (dict(fused_topk=True), K.ivf_score_topk),
     ]
     for kw, kernel in routes:
@@ -399,6 +401,151 @@ def test_k4_over_int8_deployment_blocks_matches_plain(cuda):
     assert float(((got - ref) * row_scale).abs().max()) <= 1e-6
 
 
+def _pair_case(dev, dtype, k, L, d, B, nprobe, cap, num_slots=None, seed=0):
+    """A grouped search's slots over ``_ivf_case``'s blocks: ``B`` unit
+    queries each probing ``nprobe`` distinct blocks, a quarter of them
+    block 0 (a hot block, spilled over several slots), grouped by
+    ``index/ivf.py::slot_groups`` into ``num_slots`` (``slot_count``'s by
+    default) slots of ``cap`` places.  Returns (blocks, ids, scales, P,
+    (keys, qg, slot_pairs, item_slot, item_pos, sorted_pairs))."""
+    from granne_tpu_torch.index import ivf
+
+    blocks, ids, scales, _, _ = _ivf_case(dev, dtype, k, L, d, 1, 1, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    q = distance.normalize(torch.randn((B, d), generator=gen, device=dev))
+    probes = torch.rand((B, k), generator=gen, device=dev).argsort(dim=1)[:, :nprobe]
+    hot = (probes == 0).any(dim=1)
+    probes[::4, 0] = torch.where(hot[::4], probes[::4, 0], 0)
+    S = num_slots or ivf.slot_count(k, B, nprobe, cap)
+    return blocks, ids, scales, B * nprobe, ivf.slot_groups(q, probes, blocks, group_cap=cap, num_slots=S)
+
+
+PAIR_CASES = [
+    # dtype, k, L, d, B, nprobe, cap, group, num_slots
+    (torch.bfloat16, 1000, 256, 100, 4000, 8, 32, 8, None),  # glove's shape (bf16 blocks, L 256, d 100, nprobe 8)
+    (torch.bfloat16, 1000, 256, 100, 4000, 8, 32, 1, None),  # the same at G 1 (K3's route)
+    (torch.int8, 600, 512, 96, 2000, 32, 32, 8, None),  # deep96's (int8, real scales, L 512 in row tiles, nprobe 32)
+    (torch.int8, 600, 512, 96, 2000, 32, 32, 8, 1203),  # too few slots: dropped pairs; S % 8 != 0
+    (torch.float32, 30, 40, 33, 100, 4, 5, 3, None),  # odd d, cap 5, S % 3 != 0
+    (torch.bfloat16, 30, 37, 100, 200, 3, 40, 8, None),  # ragged L (scalar stores); cap 40: two query tiles
+]
+
+
+@pytest.mark.parametrize(
+    "case", PAIR_CASES,
+    ids=[f"{str(c[0])[6:]}-L{c[2]}-d{c[3]}-G{c[7]}{'-S' + str(c[8]) if c[8] else ''}" for c in PAIR_CASES],
+)
+def test_pair_store_equals_k4_and_its_epilogue(cuda, case):
+    """The pair store (one launch) gives, bit for bit, K4's scores (K3's at
+    G 1) followed by the search's former epilogue (scale, mask, row gather,
+    scatter to the pairs); rows of pairs that no slot holds keep the
+    buffer's fill; and it is within 1e-4 of its plain version (only the
+    summation order differs), with the same -inf rows."""
+    dtype, k, L, d, B, nprobe, cap, group, num_slots = case
+    blocks, ids, scales, P, slots = _pair_case(cuda, dtype, k, L, d, B, nprobe, cap, num_slots)
+    keys, qg, slot_pairs, item_slot = slots[:4]
+    assert bool((slot_pairs < 0).any()) and int((keys == 0).sum()) >= 2  # empty places, a spilled block
+    assert bool((item_slot < 0).any()) == (num_slots is not None)
+    k4 = K.ivf_score_slots(blocks, keys, qg) if group == 1 else K.ivf_score_slots_grouped(blocks, keys, qg, group=group)
+    want = composed_pair_rows(k4, ids, scales, slots, P)
+    before = K.ivf_score_pairs.launches
+    got = K.ivf_score_pairs(blocks, ids, scales, keys, qg, slot_pairs,
+                            torch.full((P, L), -torch.inf, device=cuda), group=group)
+    torch.cuda.synchronize()
+    assert K.ivf_score_pairs.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    kept = K.ivf_score_pairs(blocks, ids, scales, keys, qg, slot_pairs, torch.full((P, L), 7.0, device=cuda),
+                             group=group)
+    held = torch.zeros(P, dtype=torch.bool, device=cuda)
+    held[slot_pairs[slot_pairs >= 0].long()] = True
+    assert torch.equal(kept[held], want[held]) and bool((kept[~held] == 7.0).all())
+    plain = K.ivf_score_pairs_reference(blocks, ids, scales, keys, qg, slot_pairs,
+                                        torch.full((P, L), -torch.inf, device=cuda))
+    fin = torch.isfinite(plain)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert float((got[fin] - plain[fin]).abs().max()) <= 1e-4
+
+
+def test_pair_store_launches_capture_in_a_cuda_graph(cuda):
+    """Pair-store launches captured in one CUDA graph replay to the eager
+    rows exactly and follow new slots copied into the captured inputs; an
+    ``out`` off an 8-byte boundary is refused before any launch."""
+    blocks, ids, scales, P, (keys, qg, pairs, *_) = _pair_case(cuda, torch.bfloat16, 300, 256, 100, 1000, 8, 32)
+    _, _, _, _, (keys2, qg2, pairs2, *_) = _pair_case(cuda, torch.bfloat16, 300, 256, 100, 1000, 8, 32, seed=4)
+    n = min(keys.shape[0], keys2.shape[0])
+    ins = [t[:n].clone() for t in (keys, qg, pairs)]
+
+    def run():
+        out = torch.full((P, 256), -torch.inf, device=cuda)
+        return K.ivf_score_pairs(blocks, ids, scales, *ins, out)
+
+    eager = run()
+    before = K.ivf_score_pairs.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    for t, new in zip(ins, (keys2, qg2, pairs2)):
+        t.copy_(new[:n])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, run())
+    assert not torch.equal(captured, eager)
+    assert K.ivf_score_pairs.launches == before + 2
+    misaligned = torch.full((P * 256 + 1,), -torch.inf, device=cuda)[1:].view(P, 256)
+    with pytest.raises(ValueError, match="8-byte boundary"):
+        K.ivf_score_pairs(blocks, ids, scales, *ins, misaligned)
+    assert K.ivf_score_pairs.launches == before + 2
+
+
+def _searched_with_k4_epilogue(index, x, k_out, nprobe, group, cap=32):
+    """The grouped search as it ran before the pair store, assembled from
+    the port's parts: probe, grouping, K4 (K3 at ``group`` 1), the torch
+    epilogue, the merge's top-k over [B, nprobe * L] and the id gather."""
+    from granne_tpu_torch.index import ivf
+
+    q = distance.normalize(x)
+    B, L = q.shape[0], index.cluster_cap
+    probes = ivf._probe(q, index.centroids, nprobe)
+    slots = ivf.slot_groups(q, probes, index.blocks, group_cap=cap,
+                            num_slots=ivf.slot_count(index.k, B, nprobe, cap))
+    keys, qg = slots[:2]
+    scores = (K.ivf_score_slots(index.blocks, keys, qg) if group == 1
+              else K.ivf_score_slots_grouped(index.blocks, keys, qg, group=group))
+    rows = composed_pair_rows(scores, index.block_ids, index.block_scales, slots, B * nprobe)
+    ids_g = index.block_ids[keys.long()]
+    id_rows = torch.full((B * nprobe, L), -1, dtype=torch.int32, device=q.device)
+    item_slot, sorted_pairs = slots[3], slots[5]
+    id_rows[sorted_pairs.long()] = torch.where((item_slot < 0)[:, None], -1, ids_g[item_slot.clamp_min(0).long()])
+    v, pos = ivf.ranked(rows.reshape(B, nprobe * L), k_out)
+    return torch.gather(id_rows.reshape(B, nprobe * L), 1, pos), torch.clamp_min(1.0 - v, 0.0)
+
+
+def test_pair_store_search_equals_k4_with_its_epilogue(cuda):
+    """A whole grouped search through the pair store, op by op and replayed
+    from its CUDA graph, gives the ids and distances of the same search
+    assembled from K4 (K3 at ``slot_group`` 1) and the torch epilogue it
+    replaces, bit for bit, over bf16 blocks and int8 blocks with real
+    scales; each op-by-op call launches the pair store once."""
+    rng = np.random.default_rng(13)
+    centers = rng.standard_normal((40, 96)).astype(np.float32)
+    x = (centers[rng.integers(0, 40, 30_000)] + 0.35 * rng.standard_normal((30_000, 96))).astype(np.float32)
+    q = torch.as_tensor(x[:3000], device=cuda)
+    for dtype, nprobe in (("bfloat16", 8), ("int8", 32)):
+        index = g.IvfIndex.build(x, n_clusters=80, kmeans_iters=4, cluster_cap=256, dtype=dtype, device=cuda)
+        for group in (8, 1):
+            want = _searched_with_k4_epilogue(index, q, 10, nprobe, group)
+            before = K.ivf_score_pairs.launches
+            eager = index.search_batch(q, 10, nprobe=nprobe, slot_group=group, graph=False)
+            torch.cuda.synchronize()
+            assert K.ivf_score_pairs.launches == before + 1
+            replayed = index.search_batch(q, 10, nprobe=nprobe, slot_group=group)  # captured, then replayed
+            for got in (eager, replayed):
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
 def _i8_deployment(n, d=96, queries=300, seed=19):
     """Blob vectors as the plain reference's max-abs codes (host int8), and
     held-out queries."""
@@ -424,8 +571,8 @@ def _equal_but_near_ties(ids, want_ids, want_d, tol=1e-6):
 
 def test_int8_chunked_index_searches_alike_on_card_and_cpu(cuda):
     """An int8 index from ``build_ivf_i8_chunked`` (three chunks, L 512,
-    d 96) searched on the card (the grouped route op by op: K4 and
-    ``row_top_k`` at the probe's k 32) and on the CPU (plain versions), and
+    d 96) searched on the card (the grouped route op by op: the pair store
+    and ``row_top_k`` at the probe's k 32) and on the CPU (plain versions), and
     on the card through the route's CUDA graph: the same ids but at
     near ties, distances within 1e-6.  Built on the card as well, at full
     probe it returns the plain reference's top-10 at the stated precision
@@ -440,10 +587,10 @@ def test_int8_chunked_index_searches_alike_on_card_and_cpu(cuda):
         block_scales=cpu.block_scales.to(cuda), n_total=cpu.n_total,
     )
     want_ids, want_d = cpu.search_batch(q, 10, nprobe=32)
-    before = (K.ivf_score_slots_grouped.launches, row_top_k.launches)
+    before = (K.ivf_score_pairs.launches, row_top_k.launches)
     ids, dists = card.search_batch(q.to(cuda), 10, nprobe=32, graph=False)
     torch.cuda.synchronize()
-    assert (K.ivf_score_slots_grouped.launches, row_top_k.launches) == (before[0] + 1, before[1] + 2)
+    assert (K.ivf_score_pairs.launches, row_top_k.launches) == (before[0] + 1, before[1] + 2)
     assert _equal_but_near_ties(ids.cpu(), want_ids, want_d)
     assert float((dists.cpu() - want_d).abs().max()) <= 1e-6
     replayed = card.search_batch(q.to(cuda), 10, nprobe=32)
@@ -566,7 +713,7 @@ def test_ivf_search_on_card_launches_row_top_k_over_split_clusters(cuda, monkeyp
 
 def test_ivf_search_replays_a_cuda_graph_equal_to_op_by_op(cuda):
     """``IvfIndex.search_batch`` off the profiler replays a CUDA graph of the
-    grouped search (K4, K3 and K5 routes): over two different batches of one
+    grouped search (the pair store at G 8 and 1, K5): over two different batches of one
     shape its ids and distances equal the op-by-op search's bit for bit, an
     answer already returned is not overwritten by the next replay, a graph
     is captured once a key (a replay launches no kernel from Python), and
@@ -578,7 +725,7 @@ def test_ivf_search_replays_a_cuda_graph_equal_to_op_by_op(cuda):
     x = (centers[rng.integers(0, 40, 20_000)] + 0.35 * rng.standard_normal((20_000, 96))).astype(np.float32)
     index = g.IvfIndex.build(x, n_clusters=60, kmeans_iters=4, cluster_cap=256, device="cuda")
     qa, qb = (torch.as_tensor(x[lo : lo + 2000], device=cuda) for lo in (0, 5000))
-    routes = [(dict(), K.ivf_score_slots_grouped), (dict(slot_group=1), K.ivf_score_slots),
+    routes = [(dict(), K.ivf_score_pairs), (dict(slot_group=1), K.ivf_score_pairs),
               (dict(fused_topk=True), K.ivf_score_topk)]
     for kw, kernel in routes:
         want_a = index.search_batch(qa, 10, nprobe=8, graph=False, **kw)
@@ -903,7 +1050,7 @@ def test_sum_embeddings_cache_fed_build_on_card_matches_cpu(cuda):
 
 def test_tiered_ivf_on_card_matches_resident(cuda, tmp_path):
     """TieredIvf on the card (blocks in host memory, fetched blocks on the
-    card, scored by K4) gives the device-resident IvfIndex's ids and
+    card, scored by the pair store) gives the device-resident IvfIndex's ids and
     distances bit for bit, pipelined and sequential, from from_ivf and from
     a memory-mapped load, with bf16 and int8 blocks."""
     rng = np.random.default_rng(0)
@@ -922,12 +1069,12 @@ def test_tiered_ivf_on_card_matches_resident(cuda, tmp_path):
             done.synchronize()
             assert blocks.device.type == "cuda" and blocks.dtype == index.blocks.dtype
             assert blocks.shape[0] == len(np.unique(inv.cpu().numpy())) < index.k
-            before = K.ivf_score_slots_grouped.launches
+            before = K.ivf_score_pairs.launches
             for run in (t.search_batches, t.search_batches_sequential):
                 got = list(run(batches, 10, nprobe=8))
                 for (gi, gd), (wi, wd) in zip(got, want):
                     assert np.array_equal(gi, wi) and np.array_equal(gd, wd)
-            assert K.ivf_score_slots_grouped.launches == before + 2 * len(batches)
+            assert K.ivf_score_pairs.launches == before + 2 * len(batches)
 
 
 def test_trace_span_blocks_on_k1_calls(cuda):
@@ -958,7 +1105,8 @@ def test_ivf_spans_time_the_device(cuda, monkeypatch):
     """Under a profiler every ``ivf/*`` span of a K4 search gets a device
     time: the four stages' sum within ``ivf/search``'s, ``ivf/score``'s at
     least ``slot_score_kernel``'s own in the same profile and above
-    ``ivf/epilogue``'s, which runs inside it.  Pairs still
+    ``ivf/epilogue``'s (the -inf fill of the pair rows before the pair
+    store), which runs inside it; no pair is dropped.  Pairs still
     pending when ``summary()`` is called are resolved there, and pairs
     resolved early (past the drain mark) are not lost; ``count`` adds a
     device tensor without a sync."""
@@ -989,6 +1137,7 @@ def test_ivf_spans_time_the_device(cuda, monkeypatch):
     assert got["ivf/epilogue"]["device_s"] < got["ivf/score"]["device_s"]
     assert got["ivf/slots"]["total"] > got["ivf/blocks"]["total"] > 0
     assert got["ivf/slot_rows"]["total"] >= got["ivf/pairs"]["total"] == 4000 * 8
+    assert got["ivf/dropped_pairs"]["total"] == 0
 
     trace.reset()
     monkeypatch.setattr(trace, "_DRAIN_AT", 0)

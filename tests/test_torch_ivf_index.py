@@ -16,9 +16,11 @@ import torch
 
 import granne_tpu.index.ivf as jivf
 import granne_tpu.ops.kmeans as jkmeans
+from composed_epilogue import composed_pair_rows
 from granne_tpu_torch import IvfIndex, convert
 from granne_tpu_torch.index import ivf
 from granne_tpu_torch.ops import kmeans
+from granne_tpu_torch.ops.kernels import ivf_score
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -192,6 +194,83 @@ def test_search_over_split_clusters_equals_jax_probes_and_ids(rng, route):
     assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
 
 
+@pytest.mark.parametrize("route", ["k4", "k3", "k5"])
+def test_search_with_too_few_slots_equals_jax(rng, route):
+    """With ``num_slots`` below ``slot_count``'s, some pairs are held by no
+    slot: their rows stay -inf in the merge, so queries whose probes are
+    mostly dropped return (-1, inf) past their last candidate.  Ids and
+    distances equal JAX's grouped search with the same slots, on the pair
+    store's routes (K4 and K3) and K5's."""
+    x = _exact_unit_rows(rng, 1500)
+    xn = x / np.linalg.norm(x, axis=1, keepdims=True)
+    cent = xn[rng.choice(1500, 6, replace=False)]
+    blocks, ids, pcent = ivf.layout_blocks(xn, cent, np.argmax(xn @ cent.T, axis=1), 6, 64)
+    t = IvfIndex._from_f32_blocks(blocks, ids, pcent, 1500, "int8", torch.device("cpu"))
+    jargs = (jnp.asarray(pcent), jnp.asarray(t.blocks.numpy()), jnp.asarray(ids), jnp.asarray(t.block_scales.numpy()))
+    q = _exact_unit_rows(np.random.default_rng(9), 64)
+    qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+    nprobe, k_out, cap, S = 6, 10, 8, 12
+    assert S < ivf.slot_count(t.k, len(q), nprobe, cap)
+    kw = dict(nprobe=nprobe, k_out=k_out, group_cap=cap, num_slots=S)
+    targs = (t.centroids, t.blocks, t.block_ids, t.block_scales, torch.as_tensor(qn))
+    got = ivf._ivf_search_grouped(*targs, use_pallas_topk=route == "k5", slot_group=1 if route == "k3" else 8, **kw)
+    want = jivf._ivf_search_grouped(*jargs, jnp.asarray(qn), use_pallas_topk=route == "k5", **kw)
+    assert (got[0] == -1).any() and torch.isinf(got[1]).any()  # some queries lost most of their pairs
+    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+def _pair_store_case(rng, dtype, num_slots=None, cap=4):
+    """A grouped search's slot inputs over blocks with padding rows (ids -1)
+    and, for int8, real row scales: 60 queries probing 5 of the blocks, a
+    third of them block 0 (hot: spilled into several slots at ``cap`` 4),
+    so some slot places are empty; ``num_slots`` below ``slot_count``'s
+    drops pairs."""
+    x = rng.standard_normal((12 * 40, 24)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    assign = np.repeat(np.arange(12), 40)
+    assign[::7] = 3
+    blocks, ids, cent = ivf.layout_blocks(x, x[:12], assign, 12, 48)
+    t = IvfIndex._from_f32_blocks(blocks, ids, cent, len(x), dtype, torch.device("cpu"))
+    q = torch.as_tensor(rng.standard_normal((60, 24)).astype(np.float32))
+    q = q / q.norm(dim=1, keepdim=True)
+    probes = torch.as_tensor(np.stack([
+        np.r_[0, 1 + rng.choice(t.k - 1, 4, replace=False)] if i % 3 == 0 else rng.choice(t.k, 5, replace=False)
+        for i in range(60)
+    ]))
+    S = num_slots or ivf.slot_count(t.k, 60, 5, cap)
+    return t, probes, ivf.slot_groups(q, probes, t.blocks, group_cap=cap, num_slots=S)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("slots", ["slot_count", "too_few"])
+def test_pair_store_plain_equals_the_composed_epilogue(rng, dtype, slots):
+    """``ivf_score_pairs``'s plain version (the wrapper on CPU tensors)
+    equals, bit for bit, the plain K4 scores followed by the scale, the
+    mask, the row gather and the scatter to the pairs, over padding rows,
+    empty places, spilled hot blocks (group cap 4) and, with too few slots,
+    dropped pairs; rows of pairs that no slot holds keep the buffer's fill."""
+    t, probes, slot_inputs = _pair_store_case(rng, dtype, num_slots=10 if slots == "too_few" else None)
+    safe_keys, qg, slot_pairs, item_slot = slot_inputs[:4]
+    P, L = probes.numel(), t.cluster_cap
+    assert int((safe_keys == 0).sum()) >= 2  # a spilled hot block
+    assert (slot_pairs < 0).any()  # empty places
+    assert bool((t.block_ids < 0).any())
+    assert ((item_slot < 0).any()) == (slots == "too_few")
+    want = composed_pair_rows(ivf_score.ivf_score_slots_reference(t.blocks, safe_keys, qg), t.block_ids,
+                              t.block_scales, slot_inputs, P)
+    for group in (1, 3, 8):
+        got = ivf_score.ivf_score_pairs(t.blocks, t.block_ids, t.block_scales, safe_keys, qg, slot_pairs,
+                                        torch.full((P, L), -torch.inf), group=group)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    kept = ivf_score.ivf_score_pairs(t.blocks, t.block_ids, t.block_scales, safe_keys, qg, slot_pairs,
+                                     torch.full((P, L), 7.0))
+    held = torch.zeros(P, dtype=torch.bool)
+    held[slot_pairs[slot_pairs >= 0].long()] = True
+    assert torch.equal(kept[held], want[held]) and bool((kept[~held] == 7.0).all())
+    assert int((~held).sum()) == int((item_slot < 0).sum())
+
+
 # -- spans and counters -----------------------------------------------------
 
 STAGES = ["ivf/probe", "ivf/group", "ivf/score", "ivf/merge"]
@@ -209,9 +288,10 @@ def test_search_spans_nest_in_order_and_count_slots_and_blocks(rng, route):
     probe, group, score, merge, and ``ivf/epilogue`` inside ``ivf/score``;
     ``ivf/slots`` is ``slot_count``'s and ``ivf/blocks`` the distinct
     probed blocks (some hot blocks spill into further slots at a group cap
-    of 4), ``ivf/pairs`` the queries times nprobe and ``ivf/slot_rows`` the
-    slots times the cap.  The answers are bit-identical with and without
-    the profiler, and off it nothing is counted."""
+    of 4), ``ivf/pairs`` the queries times nprobe, ``ivf/slot_rows`` the
+    slots times the cap and ``ivf/dropped_pairs`` the pairs that no slot
+    holds (none at ``slot_count``'s sizing).  The answers are bit-identical
+    with and without the profiler, and off it nothing is counted."""
     from granne_tpu_torch.ops import distance
     from granne_tpu_torch.utils import trace
 
@@ -236,6 +316,9 @@ def test_search_spans_nest_in_order_and_count_slots_and_blocks(rng, route):
     assert got.pop("ivf/slots") == {"total": slots} and got.pop("ivf/blocks") == {"total": blocks}
     assert got.pop("ivf/pairs") == {"total": len(q) * nprobe}
     assert got.pop("ivf/slot_rows") == {"total": slots * cap}
+    held = int((ivf.slot_groups(distance.normalize(torch.as_tensor(q)), probes, index.blocks, group_cap=cap,
+                                num_slots=slots)[2] >= 0).sum())
+    assert got.pop("ivf/dropped_pairs") == {"total": len(q) * nprobe - held} == {"total": 0}
     assert got.pop("topk/kernel_rows") == {"total": 2 * len(q)}  # the probe's rows and the merge's
     assert blocks < index.k and slots > blocks
     assert sorted(got) == sorted(["ivf/search", "ivf/epilogue", *STAGES])

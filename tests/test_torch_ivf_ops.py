@@ -71,8 +71,8 @@ def test_group_pairs_bit_equal_to_jax(rng, case):
 
 
 def test_ivf_score_rejects_bad_inputs():
-    """K3/K4/K5's wrappers check dtypes, shapes and the group size before
-    anything runs, on any device."""
+    """K3/K4/K5's and the pair store's wrappers check dtypes, shapes and the
+    group size before anything runs, on any device."""
     blocks = torch.zeros((6, 16, 32), dtype=torch.bfloat16)
     keys = torch.zeros((12,), dtype=torch.int32)
     qg = torch.zeros((12, 8, 32), dtype=torch.bfloat16)
@@ -88,3 +88,34 @@ def test_ivf_score_rejects_bad_inputs():
         K.ivf_score_topk(blocks, ids[:, :3].contiguous(), scales, keys, qg, k_out=3)
     with pytest.raises(ValueError, match="group"):
         K.ivf_score_slots_grouped(blocks, keys, qg, group=0)
+    pairs = torch.full((12, 8), -1, dtype=torch.int32)
+    out = torch.zeros((40, 16), dtype=torch.float32)
+    with pytest.raises(ValueError, match="slot_pairs"):
+        K.ivf_score_pairs(blocks, ids, scales, keys, qg, pairs[:, :5], out)
+    with pytest.raises(ValueError, match="slot_pairs"):
+        K.ivf_score_pairs(blocks, ids, scales, keys, qg, pairs.long(), out)
+    with pytest.raises(ValueError, match="out must"):
+        K.ivf_score_pairs(blocks, ids, scales, keys, qg, pairs, out[:, :8])
+    with pytest.raises(ValueError, match="out must"):
+        K.ivf_score_pairs(blocks, ids, scales, keys, qg, pairs, out.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="block_scales"):
+        K.ivf_score_pairs(blocks, ids, scales.double(), keys, qg, pairs, out)
+    with pytest.raises(ValueError, match="group"):
+        K.ivf_score_pairs(blocks, ids, scales, keys, qg, pairs, out, group=0)
+
+
+def test_pair_store_launch_refuses_a_misaligned_out():
+    """The pair store's launch refuses an ``out`` that does not start on an
+    8-byte boundary (its rows take float2 stores) before it touches the
+    library: a contiguous [P, L] view one float into a buffer passes the
+    wrapper's shape checks but not this one."""
+    blocks = torch.zeros((6, 16, 32), dtype=torch.bfloat16)
+    keys = torch.zeros((12,), dtype=torch.int32)
+    qg = torch.zeros((12, 8, 32), dtype=torch.bfloat16)
+    ids = torch.zeros((6, 16), dtype=torch.int32)
+    scales = torch.ones((6, 16), dtype=torch.float32)
+    pairs = torch.full((12, 8), -1, dtype=torch.int32)
+    out = torch.zeros(40 * 16 + 1, dtype=torch.float32)[1:].view(40, 16)
+    assert out.is_contiguous() and out.data_ptr() % 8 == 4
+    with pytest.raises(ValueError, match="8-byte boundary"):
+        K.launch_pairs(None, blocks, ids, scales, keys, qg, pairs, out, 8)

@@ -107,7 +107,7 @@ def test_ivf_score_topk_ties_take_the_lower_column(rng):
     assert np.array_equal(np.asarray(ji)[0, 0, :3], want) and np.array_equal(ti.numpy()[0, 0, :3], want)
 
 
-@pytest.mark.parametrize("which", ["slots", "grouped", "topk"])
+@pytest.mark.parametrize("which", ["slots", "grouped", "topk", "pairs"])
 def test_cuda_tensor_raises_without_fallback(monkeypatch, which):
     """On a CPU-only torch a CUDA tensor goes to the kernel, whose build
     fails: the wrapper raises and never runs the plain version."""
@@ -120,13 +120,15 @@ def test_cuda_tensor_raises_without_fallback(monkeypatch, which):
 
     monkeypatch.setattr(K, "ivf_score_slots_reference", no_fallback)
     monkeypatch.setattr(K, "ivf_score_topk_reference", no_fallback)
+    monkeypatch.setattr(K, "ivf_score_pairs_reference", no_fallback)
     monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR.parent / "no_such_build_dir_for_test")
 
     def no_nvcc():
         raise RuntimeError("nvcc not found")
 
     monkeypatch.setattr(build, "find_nvcc", no_nvcc)
-    fn = {"slots": K.ivf_score_slots, "grouped": K.ivf_score_slots_grouped, "topk": K.ivf_score_topk}[which]
+    fn = {"slots": K.ivf_score_slots, "grouped": K.ivf_score_slots_grouped, "topk": K.ivf_score_topk,
+          "pairs": K.ivf_score_pairs}[which]
     before = fn.launches
     with FakeTensorMode():
         blocks = torch.zeros((4, 8, 16), dtype=torch.bfloat16, device="cuda")
@@ -137,6 +139,9 @@ def test_cuda_tensor_raises_without_fallback(monkeypatch, which):
         with pytest.raises(RuntimeError, match="nvcc"):
             if which == "topk":
                 fn(blocks, ids, sc, keys, qg, k_out=3)
+            elif which == "pairs":
+                pairs = torch.zeros((3, 2), dtype=torch.int32, device="cuda")
+                fn(blocks, ids, sc, keys, qg, pairs, torch.zeros((6, 8), dtype=torch.float32, device="cuda"))
             else:
                 fn(blocks, keys, qg)
     assert fn.launches == before
